@@ -7,22 +7,31 @@ Takes no arguments and reads no environment variables; paths resolve from
 this file. Phases, one short line each:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions
-2. build: the grid-SDF CUDA kernel, built with nvcc into build/
-3. kernel: the kernel against its plain torch version on the EnvConveyor2D
-   and EnvEmptyNoWait2D grids (out-of-range points, points on cell edges,
-   ragged counts, and the guide's strided view of a (64, 64, 4) batch),
-   which must agree exactly; both timed with CUDA events
-4. slice: full-width MPD plans (B=64, H=64, 25+1 DDPM steps, guided steps
+2. build: both CUDA kernels (the grid-SDF lookup and the collision guide),
+   one nvcc per source, all started together, into build/
+3. kernel: the grid-SDF kernel against its plain torch version on the
+   EnvConveyor2D and EnvEmptyNoWait2D grids (out-of-range points, points on
+   cell edges, ragged counts, a strided view, and the finalize's (64, 379, 2)
+   interpolated waypoints), which must agree exactly; both timed with CUDA
+   events at the finalize's shape, the one the main path gives it
+4. collision: the collision-guide kernel against its plain version (the
+   guide's autograd code, on the card, over the plain torch lookup) on both
+   maps and a scene whose two
+   grids tie everywhere, at (64, 64, 4) and (3, 64, 64, 4), with waypoints on
+   cell edges, in objects, in the walls' margin, in corners and at the hinge,
+   which must agree exactly; both timed at the guide's (64, 64, 4)
+5. slice: full-width MPD plans (B=64, H=64, 25+1 DDPM steps, guided steps
    x 20 guide iterations) on the EnvEmptyNoWait2D checkpoint for 3
    antipodal pairs of the 10-agent circle, and one EnvConveyor2D plan; each
-   must grow the kernel's launch count by the expected amount, and every
-   NoWait plan must succeed
-5. replay: the first NoWait plan again on the CPU with the same noise,
+   must launch the collision guide once per guide call and the lookup once
+   (the finalize), and every NoWait plan must succeed
+6. replay: the first NoWait plan again on the CPU with the same noise,
    whose trajs_final must agree within CPU_TOL; the EnvConveyor2D plan again
-   on the card with the lookup routed to its plain torch version, which must
-   agree exactly; and the EnvConveyor2D plan on the CPU, reported beside the
-   CPU's own change under a 1e-7 relative change of the initial noise
-6. one JSON line of kernel numbers, then the contract line
+   on the card with both kernels routed to their plain torch versions, which
+   must agree within REPLAY_TOL; and the EnvConveyor2D plan on the CPU,
+   reported beside the CPU's own change under a 1e-7 relative change of the
+   initial noise
+7. one JSON line of kernel numbers, then the contract line
    {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
@@ -31,6 +40,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -48,11 +58,20 @@ DEADLINE_S = 300
 # On EnvConveyor2D a waypoint that a rounding difference moves across a cell
 # edge reads another cell's gradient, and the guide amplifies that: the
 # CPU's own plan moves by more than 1e-3 when its initial noise changes by
-# 1e-7 relative. So there the lookup is held on the card, against its plain
-# version in the same plan, exactly.
+# 1e-7 relative. So there the kernels are held on the card, against their
+# plain versions in the same plan, exactly (REPLAY_TOL).
 CPU_TOL = 1e-3
+# The collision-guide kernel does its plain version's float32 operations in
+# the same order, the clip's norm included: (a^2 + b^2) + (c^2 + d^2) is how
+# torch's CUDA reduction sums four channels. So on the card it must agree
+# exactly, and does.
+COLLISION_TOL = 0.0
+# With both kernels routed to their plain versions the EnvConveyor2D plan
+# runs the same arithmetic, so it must agree exactly.
+REPLAY_TOL = 0.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-KERNEL_SHAPE = (64, 63)    # guide points per grid: B=64 x 63 waypoints
+FINALIZE_SHAPE = (64, 379)  # classification points: B=64 x (63 x 6 + 1)
+GUIDE_SHAPE = (64, 64, 4)   # one guide call: B=64 x H=64 waypoints
 NOWAIT_PAIRS = (0, 3, 6)   # of the 10-agent circle (multi_agent_utils.py:82-90)
 CONVEYOR_TASK = ((-0.8, 0.0), (0.8, 0.0))  # straight through the centre box
 
@@ -75,6 +94,17 @@ def load_planner(env_name: str, start, goal, device: str):
 
     return load(os.path.join(ROOT, "data_trained_models"),
                 os.path.join(ROOT, "data_trajectories"), env_name, start, goal, device)
+
+
+@contextlib.contextmanager
+def routed(module, name: str, fn):
+    """Bind module.name to fn for the block, then restore it."""
+    kept = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, kept)
 
 
 def kernel_points(n: int, grid, seed: int):
@@ -123,10 +153,15 @@ def main() -> int:
     import numpy as np
 
     from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
+    from mmd_torch.costs import guide
+    from mmd_torch.costs.guide import GuideConfig, collision_guide_plain
     from mmd_torch.envs.envs import make_env
+    from mmd_torch.ops import collision_guide as cg
     from mmd_torch.ops import sdf_kernel
-    from mmd_torch.ops.build import find_nvcc
+    from mmd_torch.ops.build import build_shared_libraries, find_nvcc
+    from mmd_torch.ops.collision_guide import collision_guide
     from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
+    from mmd_torch.tools.guide_cases import HINGE_CUTOFF, tied_scene, waypoints
 
     # The port is compared against its CPU run: keep float32 convolutions
     # and matmuls out of TF32 on the card.
@@ -144,19 +179,23 @@ def main() -> int:
 
     phase("build")
     t0 = time.perf_counter()
+    build_shared_libraries([sdf_kernel.SOURCE, cg.SOURCE])
     sdf_kernel.load_library()
-    print(f"build: grid_sdf.cu with {find_nvcc()} in {time.perf_counter() - t0:.2f} s")
+    cg.load_library()
+    print(f"build: grid_sdf.cu and collision_guide.cu with {find_nvcc()} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     phase("kernel")
-    max_err = 0.0
+    lookup_err = 0.0
     for env_name in ("EnvConveyor2D", "EnvEmptyNoWait2D"):
         scene = make_env(env_name, dev).scene
         tables = [(scene.grid.values, scene.grid.grads),
                   (scene.extra_grid.values, scene.extra_grid.grads)]
         batch = torch.from_numpy(kernel_points(64 * 64 * 2, scene.grid, 3)).to(dev)
+        n_final = FINALIZE_SHAPE[0] * FINALIZE_SHAPE[1]
         cases = {n: torch.from_numpy(kernel_points(n, scene.grid, n)).to(dev)
-                 for n in (KERNEL_SHAPE[0] * KERNEL_SHAPE[1], 65536, 999)}
-        cases["guide view"] = batch.reshape(64, 64, 4)[:, 1:, :2]  # as guide.py passes it
+                 for n in (n_final, 65536, 4032, 999)}
+        cases["guide view"] = batch.reshape(64, 64, 4)[:, 1:, :2]  # a strided view
         for case, pts in cases.items():
             got = grid_lookup_cuda(pts, tables, scene.grid.lower, scene.grid.upper)
             want = grid_lookup_plain(pts, tables, scene.grid.lower, scene.grid.upper)
@@ -164,29 +203,80 @@ def main() -> int:
             for g, w in zip(got, want):
                 err = float((g - w).abs().max())
                 if not torch.equal(g, w):
-                    raise RuntimeError(f"kernel != plain on {env_name}, {case}: "
+                    raise RuntimeError(f"lookup kernel != plain on {env_name}, {case}: "
                                        f"max abs err {err}")
-                max_err = max(max_err, err)
-        print(f"kernel: {env_name} equal to plain at 4032/65536/999 points and "
-              f"the guide's (64, 63, 2) view of a (64, 64, 4) batch")
+                lookup_err = max(lookup_err, err)
+        print(f"kernel: {env_name} lookup equal to plain at {n_final}/65536/4032/999 "
+              f"points and a strided (64, 63, 2) view")
 
     scene = make_env("EnvConveyor2D", dev).scene
     tables = [(scene.grid.values, scene.grid.grads),
               (scene.extra_grid.values, scene.extra_grid.grads)]
-    pts = torch.from_numpy(kernel_points(KERNEL_SHAPE[0] * KERNEL_SHAPE[1],
-                                         scene.grid, 7)).to(dev).reshape(*KERNEL_SHAPE, 2)
+    pts = torch.from_numpy(kernel_points(FINALIZE_SHAPE[0] * FINALIZE_SHAPE[1],
+                                         scene.grid, 7)).to(dev).reshape(*FINALIZE_SHAPE, 2)
     box = (scene.grid.lower, scene.grid.upper)
-    k_ms = cuda_ms(lambda: grid_lookup_cuda(pts, tables, *box))
-    p_ms = cuda_ms(lambda: grid_lookup_plain(pts, tables, *box))
+    lookup_ms = cuda_ms(lambda: grid_lookup_cuda(pts, tables, *box))
+    lookup_plain_ms = cuda_ms(lambda: grid_lookup_plain(pts, tables, *box))
     # Least bytes: each point read once, each distinct cell read once from
     # both grids (value 4 B + gradient 8 B), both outputs written once.
     i, j = sdf_kernel.cell_index(pts, scene.grid.shape, *box)
     n_pts = pts.numel() // 2
     n_cells = int(torch.unique(i * scene.grid.shape[1] + j).numel())
-    bound_bytes = n_pts * 8 + len(tables) * 12 * (n_cells + n_pts)
-    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"kernel: {n_pts} pts x 2 grids: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_bytes} B)")
+    lookup_bytes = n_pts * 8 + len(tables) * 12 * (n_cells + n_pts)
+    lookup_bound_ms = lookup_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel: lookup of {n_pts} pts x 2 grids: kernel {lookup_ms:.5f} ms, plain "
+          f"{lookup_plain_ms:.5f} ms, bound {lookup_bound_ms:.6f} ms ({lookup_bytes} B)")
+
+    phase("collision")
+    # The plain version's lookup runs in plain torch too, so that the kernel
+    # is held against plain torch only.
+    def plain_lookup():
+        return routed(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
+
+    collision_err, n_cases = 0.0, 0
+    for cutoff in (GuideConfig().obstacle_cutoff_margin, HINGE_CUTOFF):
+        cfg = GuideConfig(obstacle_cutoff_margin=cutoff)
+        conveyor_scene = make_env("EnvConveyor2D", dev).scene
+        scenes = {"EnvConveyor2D": conveyor_scene,
+                  "EnvEmptyNoWait2D": make_env("EnvEmptyNoWait2D", dev).scene,
+                  "tied": tied_scene(conveyor_scene, cfg.collision_margin)}
+        for name, sc in scenes.items():
+            for shape in (GUIDE_SHAPE, (3, *GUIDE_SHAPE)):
+                u = torch.from_numpy(waypoints(shape, sc, cfg.collision_margin,
+                                               len(name) + len(shape))).to(dev)
+                got = collision_guide(u, sc, cfg)
+                with plain_lookup():
+                    want = collision_guide_plain(u, sc, cfg)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not err <= COLLISION_TOL or got[..., 2:].any():
+                    raise RuntimeError(f"collision kernel != plain on {name}, {shape}, "
+                                       f"cutoff {cutoff}: max abs err {err}")
+                collision_err = max(collision_err, err)
+                n_cases += 1
+    print(f"collision: kernel against plain in {n_cases} cases (2 maps and a tied scene, "
+          f"(64, 64, 4) and (3, 64, 64, 4), default and hinge margins): max abs err "
+          f"{collision_err:.3e} (tolerance {COLLISION_TOL})")
+
+    cfg = GuideConfig()
+    u = torch.from_numpy(waypoints(GUIDE_SHAPE, scene, cfg.collision_margin, 11)).to(dev)
+    collision_ms = cuda_ms(lambda: collision_guide(u, scene, cfg))
+    with plain_lookup():
+        collision_plain_ms = cuda_ms(lambda: collision_guide_plain(u, scene, cfg))
+    # Least bytes: each inner row read once (16 B; the first and last
+    # waypoints' outputs are 0 whatever they hold), each distinct cell of
+    # the inner rows read once (24 B: two grids' value and gradient; the
+    # table's 8 B of padding are not the function's), each row written
+    # once (16 B).
+    q = u[:, 1:-1, :2].contiguous()
+    i, j = sdf_kernel.cell_index(q, scene.grid.shape, *box)
+    n_cells = int(torch.unique(i * scene.grid.shape[1] + j).numel())
+    n_rows = u.numel() // 4
+    collision_bytes = (q.numel() // 2) * 16 + n_rows * 16 + n_cells * 24
+    collision_bound_ms = collision_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"collision: {GUIDE_SHAPE} on EnvConveyor2D: kernel {collision_ms:.5f} ms, "
+          f"plain {collision_plain_ms:.5f} ms, bound {collision_bound_ms:.6f} ms "
+          f"({collision_bytes} B, {n_cells} cells)")
 
     phase("slice")
     starts, goals = get_start_goal_pos_circle(10)
@@ -194,34 +284,37 @@ def main() -> int:
     nowait = [load_planner("EnvEmptyNoWait2D", *pairs[k], dev) for k in NOWAIT_PAIRS]
     conveyor = load_planner("EnvConveyor2D", *CONVEYOR_TASK, dev)
     cfg = nowait[0].cfg
-    per_plan = cfg.n_guided_steps() * cfg.n_guide_steps + 1  # guide + finalize
+    guide_calls = cfg.n_guided_steps() * cfg.n_guide_steps
     t0 = time.perf_counter()
     nowait[0]()  # warm-up
     print(f"slice: warm-up plan {time.perf_counter() - t0:.3f} s; expecting "
-          f"{per_plan} launches a plan ({cfg.n_guided_steps()} guided steps x "
-          f"{cfg.n_guide_steps} + 1 finalize)")
-    # Noise of the plans that phase 5 replays on the CPU.
+          f"{guide_calls} collision-guide launches a plan ({cfg.n_guided_steps()} "
+          f"guided steps x {cfg.n_guide_steps}) and 1 lookup (finalize)")
+    # Noise of the plans that phase 6 replays.
     replay = {0: nowait[0].draw_noise(), len(NOWAIT_PAIRS): conveyor.draw_noise()}
-    grid_lookup.launches = 0  # main path starts
+    grid_lookup.launches = collision_guide.launches = 0  # main path starts
     runs = [(f"EnvEmptyNoWait2D pair {k}", p) for k, p in zip(NOWAIT_PAIRS, nowait)]
     runs.append(("EnvConveyor2D", conveyor))
     outs, plan_s = [], []
     for n, (label, planner) in enumerate(runs):
-        before = grid_lookup.launches
+        before = (collision_guide.launches, grid_lookup.launches)
         out = planner(noise=replay.get(n))
-        grew = grid_lookup.launches - before
+        grew = (collision_guide.launches - before[0], grid_lookup.launches - before[1])
         outs.append(out)
         plan_s.append(out.t_total)
         print(f"slice: {label}: {out.t_total:.3f} s, success {out.success_free_trajs}, "
-              f"fraction_free {out.fraction_free_trajs:.3f}, launches +{grew}")
-        if grew != per_plan:
-            raise RuntimeError(f"{label}: kernel launched {grew} times, expected {per_plan}")
+              f"fraction_free {out.fraction_free_trajs:.3f}, launches collision "
+              f"+{grew[0]}, lookup +{grew[1]}")
+        if grew != (guide_calls, 1):
+            raise RuntimeError(f"{label}: collision guide launched {grew[0]} times and "
+                               f"the lookup {grew[1]}, expected {guide_calls} and 1")
         if not torch.isfinite(out.trajs_final).all() or out.trajs_final.shape != (
                 cfg.n_samples, cfg.horizon, cfg.state_dim):
             raise RuntimeError(f"{label}: trajs_final not finite of the expected shape")
         if label.startswith("EnvEmptyNoWait2D") and out.success_free_trajs != 1:
             raise RuntimeError(f"{label}: no collision-free trajectory")
-    main_launches = grid_lookup.launches  # main path ends
+    main_launches = {"grid_sdf_lookup": grid_lookup.launches,
+                     "collision_guide": collision_guide.launches}  # main path ends
 
     phase("replay")
 
@@ -240,16 +333,14 @@ def main() -> int:
         raise RuntimeError(f"card and CPU plans differ by {diff} > {CPU_TOL}")
 
     n = len(NOWAIT_PAIRS)  # the EnvConveyor2D plan
-    sdf_kernel.grid_lookup_cuda = grid_lookup_plain  # this replay only
-    try:
+    # This replay only: both kernels give way to their plain versions.
+    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
         plain_out = conveyor(noise=replay[n])
-    finally:
-        sdf_kernel.grid_lookup_cuda = grid_lookup_cuda
     diff = max_diff(outs[n], plain_out)
-    print(f"replay: {runs[n][0]} on the card with the plain lookup, "
-          f"max |trajs_final kernel - plain| {diff:.3e} (tolerance 0)")
-    if diff != 0.0:
-        raise RuntimeError(f"the kernel's and the plain lookup's plans differ by {diff}")
+    print(f"replay: {runs[n][0]} on the card with both plain versions, "
+          f"max |trajs_final kernels - plain| {diff:.3e} (tolerance {REPLAY_TOL})")
+    if not diff <= REPLAY_TOL:
+        raise RuntimeError(f"the kernels' and the plain versions' plans differ by {diff}")
     cpu_conveyor = load_planner("EnvConveyor2D", *CONVEYOR_TASK, "cpu")
     cpu_out = cpu_conveyor(noise=on_cpu(replay[n]))
     nudged = cpu_conveyor(noise=on_cpu(replay[n], 1.0 + 1e-7))
@@ -260,9 +351,15 @@ def main() -> int:
     phase("report")
     kernels = [{
         "name": "grid_sdf_lookup", "route": "cuda", "source": "mmd_torch/csrc/grid_sdf.cu",
-        "replaces": sdf_kernel.REPLACES, "launches": main_launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": None,
+        "replaces": sdf_kernel.REPLACES, "launches": main_launches["grid_sdf_lookup"],
+        "max_abs_err": lookup_err, "ms": lookup_ms, "plain_ms": lookup_plain_ms,
+        "bound_ms": lookup_bound_ms, "bound_by": "bytes", "library_ms": None,
+    }, {
+        "name": "collision_guide", "route": "cuda",
+        "source": "mmd_torch/csrc/collision_guide.cu", "replaces": cg.REPLACES,
+        "launches": main_launches["collision_guide"], "max_abs_err": collision_err,
+        "ms": collision_ms, "plain_ms": collision_plain_ms,
+        "bound_ms": collision_bound_ms, "bound_by": "bytes", "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels, "plan_s": plan_s,
                       "total_s": round(time.perf_counter() - t_start, 3)}))
@@ -271,7 +368,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

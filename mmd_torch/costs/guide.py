@@ -15,6 +15,9 @@ guides.py:152-234). Quirks kept as the JAX package keeps them:
   margin = 1.1 radius + 0.01 on the 64 support points: the reference's
   intended 1.5x interpolation never reaches its costs (guides.py:202)
 - the result is the negative weighted gradient sum (guides.py:224-226)
+The two collision terms run as one CUDA kernel on the card
+(`mmd_torch/ops/collision_guide.py`) and as `collision_guide_plain`, their
+autograd code, on the CPU.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from mmd_torch.costs.constraints import (
 from mmd_torch.costs.gp import gp_trajectory_cost
 from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.envs.envs import SceneData
+from mmd_torch.ops.collision_guide import collision_guide
 from mmd_torch.tasks.task import boundary_signed_distances, scene_object_sdf
 
 
@@ -96,17 +100,37 @@ def _grad(cost, u: torch.Tensor) -> torch.Tensor:
     return g
 
 
+def collision_guide_plain(u: torch.Tensor, scene: SceneData, cfg: GuideConfig) -> torch.Tensor:
+    """The collision-guide kernel's plain version: both collision terms of
+    the guide, each through `_finish` and weighted, by autograd."""
+    with torch.enable_grad():
+        g_obj = _grad(lambda v: collision_cost_objects(v, scene, cfg), u)
+        g_bound = _grad(lambda v: collision_cost_boundaries(v, scene, cfg), u)
+    out = cfg.weight_collision * _finish(g_obj, cfg.max_grad_norm)
+    return out + cfg.weight_collision * _finish(g_bound, cfg.max_grad_norm)
+
+
+def collision_gradient(u: torch.Tensor, scene: SceneData, cfg: GuideConfig) -> torch.Tensor:
+    """u (..., H, 4) unnormalized -> the guide's collision step (..., H, 4).
+
+    CUDA tensors go to the kernel, CPU tensors to the plain version.
+    """
+    if u.is_cuda:
+        return collision_guide(u, scene, cfg)
+    if u.device.type == "cpu":
+        return collision_guide_plain(u, scene, cfg)
+    raise ValueError(f"collision_gradient: unsupported device {u.device}")
+
+
 def guide_gradient(x_norm: torch.Tensor, gd: GuideData, cfg: GuideConfig) -> torch.Tensor:
     """One guide evaluation. x_norm (B, H, D) -> the step to add to it
     (x <- x + guide(x), sample_functions.py:100-107)."""
     with torch.enable_grad():
         u = gd.normalizer.unnormalize(x_norm.detach())
-        g_obj = _grad(lambda v: collision_cost_objects(v, gd.scene, cfg), u)
-        g_bound = _grad(lambda v: collision_cost_boundaries(v, gd.scene, cfg), u)
+        # Both collision terms, weighted and clipped: one kernel launch on
+        # the card, the autograd of the two costs above on the CPU.
+        total = collision_gradient(u, gd.scene, cfg)
         g_gp = _grad(lambda v: gp_trajectory_cost(v, cfg.dt), u)
-
-        total = cfg.weight_collision * _finish(g_obj, cfg.max_grad_norm)
-        total = total + cfg.weight_collision * _finish(g_bound, cfg.max_grad_norm)
         total = total + cfg.weight_smoothness * _finish(g_gp, cfg.max_grad_norm)
 
         cset = gd.constraints

@@ -17,8 +17,10 @@ import torch
 
 from mmd_torch.envs.grid_sdf import GridSDF, build_grid_sdf
 from mmd_torch.envs.primitives import BIG, BoxField, union_sdf
+from mmd_torch.ops.collision_guide import GuideTable
 
 SDF_CELL_SIZE = 0.005  # 400 x 400 cells over [-1, 1]^2, as every checkpoint saw
+WS_BOUNDARY_SCALE = 1.08  # the walls' box, scaled workspace (reference: tasks.py:83-85)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +31,18 @@ class SceneData:
     extra_grid: GridSDF
     ws_min: torch.Tensor  # (2,) workspace bounds for the boundary field
     ws_max: torch.Tensor
+    # The collision-guide kernel's packed grids and constants, built once
+    # per scene, on the grids' device.
+    guide_table: GuideTable = dataclasses.field(init=False, repr=False,
+                                                compare=False)
+
+    def __post_init__(self):
+        # The walls' box as boundary_signed_distances computes it: a float32
+        # product, the same on the CPU as on the card.
+        lo = (self.ws_min.cpu() * WS_BOUNDARY_SCALE).tolist()
+        hi = (self.ws_max.cpu() * WS_BOUNDARY_SCALE).tolist()
+        object.__setattr__(self, "guide_table",
+                           GuideTable.build(self.grid, self.extra_grid, lo, hi))
 
 
 class Env2D:

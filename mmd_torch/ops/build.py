@@ -1,7 +1,7 @@
 """Build a CUDA source of the port into a shared library at first use.
 
-`nvcc` compiles one `.cu` file with a plain C interface into
-`build/lib<name>-<digest>.so` at the repository root; the digest covers the
+`nvcc` compiles each `.cu` file with a plain C interface into
+`build/lib<stem>-<digest>.so` at the repository root; the digest covers the
 source, the flags and the compiler path, so an edited source never loads a
 stale library. The library is loaded with `ctypes` by the op that owns it.
 """
@@ -12,6 +12,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import List, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build"
@@ -36,20 +37,40 @@ def find_nvcc() -> str:
         f"and PATH: {tried}")
 
 
-def build_shared_library(source: Path, name: str) -> Path:
-    """Compile `source` unless a library of the same digest exists."""
+def build_shared_libraries(sources: Sequence[Path],
+                           build_dir: Path = BUILD_DIR) -> List[Path]:
+    """Compile each source whose library is missing from `build_dir`, with
+    one nvcc process per source, all started together; return the
+    libraries in order."""
     nvcc = find_nvcc()
-    digest = hashlib.sha256(
-        source.read_bytes() + "\0".join((nvcc, *NVCC_FLAGS)).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source} (rc {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return out
+    outs, jobs = [], []
+    try:
+        for source in sources:
+            digest = hashlib.sha256(source.read_bytes() + "\0".join(
+                (nvcc, *NVCC_FLAGS)).encode()).hexdigest()[:16]
+            out = build_dir / f"lib{source.stem}-{digest}.so"
+            outs.append(out)
+            if out.exists():
+                continue
+            build_dir.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((source, out, tmp, proc))
+        errors = []
+        for source, out, tmp, proc in jobs:
+            log, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed on {source} (rc {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    finally:
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
+

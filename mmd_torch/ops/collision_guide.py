@@ -1,0 +1,116 @@
+"""The collision-guide kernel's binding: its scene table, build and launch.
+
+`collision_guide(u, scene, cfg)` launches the hand-written kernel of
+`mmd_torch/csrc/collision_guide.cu` (built with nvcc at first use, bound
+with ctypes) on a CUDA tensor u (..., H, 4) of unnormalized trajectories and
+returns
+
+    w * _finish(d/du collision_cost_objects(u))
+      + w * _finish(d/du collision_cost_boundaries(u))
+
+with w = cfg.weight_collision (twin of `mmd_tpu/costs/guide.py:106-136,
+147-152`). It refuses any other tensor. The plain version, and the choice
+between the two by device, are `collision_guide_plain` and
+`collision_gradient` in `mmd_torch/costs/guide.py`.
+`collision_guide.launches` counts kernel launches.
+
+The kernel reads a scene through its `GuideTable`, built once per scene
+(`SceneData.guide_table`): both SDF grids packed into one record of eight
+float32 per cell, and the box and wall constants as host floats.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from mmd_torch.ops.build import CSRC_DIR, build_shared_libraries
+from mmd_torch.ops.sdf_kernel import box_span
+
+SOURCE = CSRC_DIR / "collision_guide.cu"
+# The TPU kernel whose work on the guide's path this one takes over.
+REPLACES = "mmd_tpu/ops/sdf_kernel.py:50"
+RECORD = 8  # float32 per cell: v0, g0x, g0y, v1, g1x, g1y, 0, 0
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class GuideTable:
+    """A scene as the kernel reads it."""
+
+    cells: torch.Tensor             # (N0, N1, RECORD) float32, contiguous
+    lower: Tuple[float, float]      # grid box, host floats
+    span: Tuple[float, float]       # upper - lower in float32
+    wall_lo: Tuple[float, float]    # the walls' box, as the boundary field
+    wall_hi: Tuple[float, float]    # computes it in float32
+
+    @staticmethod
+    def build(grid, extra_grid, wall_lo: Sequence[float],
+              wall_hi: Sequence[float]) -> "GuideTable":
+        """Pack two `GridSDF`s of one shape and box, on their device."""
+        if (grid.shape != extra_grid.shape or grid.lower != extra_grid.lower
+                or grid.upper != extra_grid.upper):
+            raise ValueError("the two grids must share one shape and box")
+        v0, v1 = grid.values[..., None], extra_grid.values[..., None]
+        pad = torch.zeros_like(grid.grads)
+        cells = torch.cat([v0, grid.grads, v1, extra_grid.grads, pad], dim=-1)
+        return GuideTable(cells=cells.contiguous(), lower=tuple(grid.lower),
+                          span=box_span(grid.lower, grid.upper),
+                          wall_lo=tuple(wall_lo), wall_hi=tuple(wall_hi))
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first call only) and load the kernel's shared library."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_shared_libraries([SOURCE])[0]))
+        fn = lib.collision_guide
+        p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+        fn.argtypes = [p, ctypes.c_longlong, i, p, i, i, f, f, f, f, f, f, f, f,
+                       f, f, f, p, p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check_cuda_args(u: torch.Tensor, table: GuideTable):
+    if (u.dtype != torch.float32 or u.dim() < 2 or u.shape[-1] != 4
+            or u.shape[-2] < 2):
+        raise ValueError(f"u must be float32 (..., H >= 2, 4), got {u.dtype} "
+                         f"{tuple(u.shape)}")
+    if not u.is_contiguous() or u.data_ptr() % 16:
+        raise ValueError("u must be contiguous and 16-byte aligned: the kernel "
+                         "reads each waypoint as one float4")
+    if not u.is_cuda:
+        raise ValueError(f"u must be a CUDA tensor, got one on {u.device}")
+    if table.cells.device != u.device:
+        raise ValueError(f"the scene's table is on {table.cells.device}, "
+                         f"u on {u.device}")
+
+
+def collision_guide(u: torch.Tensor, scene, cfg) -> torch.Tensor:
+    """u (..., H, 4) unnormalized, on the card -> the guide's collision step
+    (..., H, 4), by the CUDA kernel."""
+    table = scene.guide_table
+    _check_cuda_args(u, table)
+    out = torch.empty_like(u)
+    n_rows = u.numel() // 4
+    if n_rows > 0:
+        lib = load_library()
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        n0, n1 = table.cells.shape[:2]
+        rc = lib.collision_guide(
+            u.data_ptr(), n_rows, u.shape[-2], table.cells.data_ptr(), n0, n1,
+            *table.lower, *table.span, *table.wall_lo, *table.wall_hi,
+            cfg.collision_margin, cfg.weight_collision, cfg.max_grad_norm,
+            out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"collision_guide launch failed: cudaError {rc}")
+        collision_guide.launches += 1
+    return out
+
+
+collision_guide.launches = 0

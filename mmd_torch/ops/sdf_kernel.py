@@ -13,12 +13,13 @@ pair; both share one shape and one box `[lower, upper]`.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from mmd_torch.ops.build import CSRC_DIR, build_shared_library
+from mmd_torch.ops.build import CSRC_DIR, build_shared_libraries
 
 SOURCE = CSRC_DIR / "grid_sdf.cu"
 # The TPU kernel this one replaces (file:line of its body).
@@ -33,7 +34,7 @@ def load_library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel's shared library."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_shared_library(SOURCE, "grid_sdf")))
+        lib = ctypes.CDLL(str(build_shared_libraries([SOURCE])[0]))
         fn = lib.grid_sdf_lookup
         p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
         fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, i, f, f, f, f,
@@ -43,8 +44,10 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def box_span(lower, upper) -> Tuple[float, float]:
-    """upper - lower in float32, as the JAX lookup computes it."""
+@functools.lru_cache(maxsize=16)
+def box_span(lower: Tuple[float, ...], upper: Tuple[float, ...]) -> Tuple[float, ...]:
+    """upper - lower in float32, as the JAX lookup computes it; computed
+    once per box (a grid's box is a tuple of host floats)."""
     return tuple(float(s) for s in (np.asarray(upper, np.float32)
                                     - np.asarray(lower, np.float32)))
 

@@ -15,11 +15,9 @@ from typing import Tuple
 
 import torch
 
-from mmd_torch.envs.envs import SceneData
+from mmd_torch.envs.envs import WS_BOUNDARY_SCALE, SceneData
 from mmd_torch.envs.grid_sdf import grid_sdf_pair
 from mmd_torch.utils.interp import interpolate_traj_via_points
-
-WS_BOUNDARY_SCALE = 1.08  # reference: tasks.py:83-85
 
 
 def boundary_signed_distances(scene: SceneData, q: torch.Tensor) -> torch.Tensor:

@@ -4,22 +4,36 @@
 
 Plans EnvEmptyNoWait2D pair 0 of the 10-agent circle at full width (B=64,
 H=64, 25+1 steps, 14 guided steps x 20 guide iterations) after one warm-up
-plan, then prints one JSON line:
-- plan_s: host-clock seconds of 3 plans (each ends in a device sync)
-- busy_s, kernels: the device's busy time (union of kernel intervals) over
-  one plan traced with torch.profiler, and the number of kernels it ran
-- idle_share: 1 - busy_s / the median untraced plan_s, the share of a plan
-  the device sits idle; idle_share_traced divides by the traced plan's wall
-  time instead, which the profiler itself lengthens
-- part_ms: CUDA-event times of the plan's parts alone: one UNet forward, one
-  guide_gradient, one grid lookup, one finalize
-- top: the 8 kernels with the most device time in the traced plan
+plan of each path, then prints the card's name and power limit and one JSON
+line. Two paths are measured in turns: "kernel", the port as it runs, and
+"plain", the same plan with the collision guide's wrapper routed to its
+plain version (the guide's autograd code over the grid-SDF lookup kernel)
+for that plan only.
+- plan_s: host-clock seconds of 8 plans in the order plain, kernel, kernel,
+  plain, twice (each ends in a device sync), by path
+- paths[path]: one plan traced with torch.profiler: busy_s (union of
+  kernel intervals), kernels (device events) per plan, kernels per guide
+  call (one guide_gradient traced alone), idle_share = 1 - busy_s / the
+  path's median untraced plan_s, and idle_share_traced, which divides by
+  the traced plan's wall time instead (the profiler lengthens it)
+- port_kernels: each port kernel's launches and device time by kernel name
+  in the kernel path's traced plan
+- part_ms: CUDA-event times of the plan's parts alone (wrappers included):
+  one UNet forward, one guide_gradient of each path, one collision-guide
+  call and its plain version, one grid lookup at the finalize's shape, one
+  finalize
+- top: the 8 kernels with the most device time in the kernel path's plan
+- build_s: host seconds to build both CUDA sources into empty directories,
+  one nvcc after the other ("serial") and both started together
+  ("parallel", as chip_smoke.py builds them), in turns, twice each
 Needs a CUDA card.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -28,11 +42,48 @@ import time
 import torch
 
 from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
-from mmd_torch.costs.guide import GuideData, guide_gradient
+from mmd_torch.costs import guide
+from mmd_torch.costs.guide import GuideData, collision_guide_plain, guide_gradient
+from mmd_torch.ops import collision_guide as cg
+from mmd_torch.ops import sdf_kernel
+from mmd_torch.ops.build import BUILD_DIR, build_shared_libraries
 from mmd_torch.ops.sdf_kernel import grid_lookup
 from mmd_torch.planners.single_agent.mpd import _finalize_plan, load_planner
+from mmd_torch.utils.interp import interpolate_traj_via_points
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# Port kernels by the name the profiler gives their device events.
+PORT_KERNELS = {"collision_guide": "collision_guide_kernel",
+                "grid_sdf_lookup": "grid_sdf_lookup_kernel"}
+
+
+@contextlib.contextmanager
+def plain_collision():
+    """Route the guide's collision terms on the card to their plain version."""
+    guide.collision_guide = collision_guide_plain
+    try:
+        yield
+    finally:
+        guide.collision_guide = cg.collision_guide
+
+
+def build_seconds() -> dict:
+    """Both sources built into empty directories, serially and together, in
+    the order serial, parallel, parallel, serial."""
+    sources = [sdf_kernel.SOURCE, cg.SOURCE]
+    out, root = {"serial": [], "parallel": []}, BUILD_DIR / f"profile-{os.getpid()}"
+    try:
+        for n, how in enumerate(("serial", "parallel", "parallel", "serial")):
+            t0 = time.perf_counter()
+            if how == "serial":
+                for source in sources:
+                    build_shared_libraries([source], root / str(n))
+            else:
+                build_shared_libraries(sources, root / str(n))
+            out[how].append(time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def _event_ms(fn, n: int) -> float:
@@ -60,6 +111,18 @@ def _busy_us(events) -> float:
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+def _traced(fn):
+    """Run fn under torch.profiler: (host seconds, the device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_plan: needs a CUDA card", file=sys.stderr)
@@ -69,56 +132,83 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
+    build_s = build_seconds()
     starts, goals = get_start_goal_pos_circle(10)
     planner = load_planner(os.path.join(ROOT, "data_trained_models"),
                            os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
                            starts[0], goals[0], "cuda")
-    planner()  # warm-up
-    plan_s = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        planner()
-        plan_s.append(time.perf_counter() - t0)
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        planner()
-        traced_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = _busy_us(kernels) * 1e-6 if kernels else None  # None: not measured
-    per_name = {}
-    for e in kernels:
-        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    paths = {"kernel": contextlib.nullcontext, "plain": plain_collision}
+    for path in paths.values():
+        with path():
+            planner()  # warm-up
+    plan_s = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain") * 2:
+        with paths[name]():
+            t0 = time.perf_counter()
+            planner()
+            plan_s[name].append(time.perf_counter() - t0)
 
     cfg, B = planner.cfg, planner.cfg.n_samples
     x = planner.draw_noise().x_T
-    tb = torch.full((B,), 12, dtype=torch.int64, device="cuda")
     gd = GuideData(scene=planner.scene, normalizer=planner.dataset.normalizer,
                    constraints=planner._pack(None))
+    report, events = {}, {}
+    for name, path in paths.items():
+        with path():
+            traced_s, plan_events = _traced(planner)
+            _, guide_events = _traced(lambda: guide_gradient(x, gd, planner.guide_cfg))
+        busy_s = _busy_us(plan_events) * 1e-6 if plan_events else None  # None: not measured
+        untraced = statistics.median(plan_s[name])
+        report[name] = {
+            "busy_s": busy_s, "traced_plan_s": traced_s,
+            "kernels_per_plan": len(plan_events),
+            "kernels_per_guide_call": len(guide_events),
+            "idle_share": None if busy_s is None else 1.0 - busy_s / untraced,
+            "idle_share_traced": None if busy_s is None else 1.0 - busy_s / traced_s,
+        }
+        events[name] = plan_events
+
+    per_name = {}
+    for e in events["kernel"]:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    port = {}
+    for kernel, tag in PORT_KERNELS.items():
+        hits = [e.time_range.elapsed_us() for e in events["kernel"] if tag in e.name]
+        port[kernel] = {"launches": len(hits), "device_us": sum(hits),
+                        "device_us_per_launch": sum(hits) / len(hits) if hits else None}
+
+    tb = torch.full((B,), 12, dtype=torch.int64, device="cuda")
     chain = torch.stack([x] * (len(cfg.step_indices()) + 1))
-    q = x[:, 1:, :2].contiguous()
+    u = gd.normalizer.unnormalize(x)
+    q = interpolate_traj_via_points(u[..., :2], 5)  # the finalize's points
     tables = [(planner.scene.grid.values, planner.scene.grid.grads),
               (planner.scene.extra_grid.values, planner.scene.extra_grid.grads)]
+
+    def plain_guide():
+        with plain_collision():
+            guide_gradient(x, gd, planner.guide_cfg)
+
     with torch.no_grad():
         part_ms = {
             "unet_forward": _event_ms(lambda: planner.model(x, tb), 26),
             "guide_gradient": _event_ms(lambda: guide_gradient(x, gd, planner.guide_cfg), 50),
-            "grid_lookup": _event_ms(lambda: grid_lookup(q, tables, planner.scene.grid.lower,
-                                                         planner.scene.grid.upper), 200),
+            "guide_gradient_plain": _event_ms(plain_guide, 50),
+            "collision_guide": _event_ms(
+                lambda: cg.collision_guide(u, planner.scene, planner.guide_cfg), 200),
+            "collision_guide_plain": _event_ms(
+                lambda: collision_guide_plain(u, planner.scene, planner.guide_cfg), 200),
+            "grid_lookup_finalize_shape": _event_ms(
+                lambda: grid_lookup(q, tables, planner.scene.grid.lower,
+                                    planner.scene.grid.upper), 200),
             "finalize": _event_ms(lambda: _finalize_plan(
                 chain, gd.normalizer, planner.scene, planner.robot.radius,
                 planner.robot.q_min, planner.robot.q_max, planner._savgol), 10),
         }
     print(card)
     print(json.dumps({
-        "plan_s": plan_s, "traced_plan_s": traced_s, "busy_s": busy_s,
-        "idle_share": None if busy_s is None else 1.0 - busy_s / statistics.median(plan_s),
-        "idle_share_traced": None if busy_s is None else 1.0 - busy_s / traced_s,
-        "kernels": len(kernels),
-        "part_ms": part_ms,
+        "plan_s": plan_s, "paths": report, "port_kernels": port, "part_ms": part_ms,
+        "build_s": build_s,
         "per_plan": {"unet_forwards": len(cfg.step_indices()),
                      "guide_gradients": cfg.n_guided_steps() * cfg.n_guide_steps},
         "top": [[name[:60], round(us / 1e3, 3)] for name, us in top],

@@ -1,20 +1,30 @@
-"""The CUDA kernel on the card. Every test here needs a CUDA card (marker
+"""The CUDA kernels on the card. Every test here needs a CUDA card (marker
 `gpu`) and skips without one. The file imports neither JAX nor the JAX
 package, so it also runs on a machine that has only the port's packages:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
-(`--noconftest`: the suite's conftest.py configures JAX.) The kernel must
-equal its plain torch version exactly: both compute the same float32 index
-arithmetic and read the same cells.
+(`--noconftest`: the suite's conftest.py configures JAX.) The grid-SDF
+kernel must equal its plain torch version exactly: both compute the same
+float32 index arithmetic and read the same cells. So must the
+collision-guide kernel equal its plain version (the guide's autograd code,
+run on the card over the plain torch lookup): it does the same float32 operations in the same order,
+the clip's norm summed as (a^2 + b^2) + (c^2 + d^2), as torch's CUDA
+reduction sums four channels.
 """
 import numpy as np
 import pytest
 import torch
 
+from mmd_torch.costs.constraints import empty_constraint_set
+from mmd_torch.costs.guide import GuideConfig, GuideData, collision_guide_plain, guide_gradient
+from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.envs.envs import make_env
 from mmd_torch.envs.grid_sdf import grid_sdf_pair
+from mmd_torch.ops import sdf_kernel
+from mmd_torch.ops.collision_guide import collision_guide
 from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
+from mmd_torch.tools.guide_cases import HINGE_CUTOFF, tied_scene, waypoints
 
 pytestmark = pytest.mark.gpu
 
@@ -85,3 +95,58 @@ def test_autograd_on_the_card_matches_the_cpu():
         out[dev] = (a.detach().cpu(), x.grad.cpu())
     assert torch.equal(out["cpu"][0], out["cuda"][0])
     assert torch.equal(out["cpu"][1], out["cuda"][1])
+
+
+def _collision_case(name: str, cutoff: float):
+    cfg = GuideConfig(obstacle_cutoff_margin=cutoff)
+    scene = make_env("EnvConveyor2D" if name == "tied" else name, "cuda").scene
+    if name == "tied":
+        scene = tied_scene(scene, cfg.collision_margin)
+    return scene, cfg
+
+
+@pytest.mark.parametrize("cutoff", [0.01, HINGE_CUTOFF], ids=["default", "hinge"])
+@pytest.mark.parametrize("shape", [(64, 64, 4), (3, 64, 64, 4), (5, 2, 4)],
+                         ids=["64x64", "3x64x64", "H=2"])
+@pytest.mark.parametrize("name", ["EnvConveyor2D", "EnvEmptyNoWait2D", "tied"])
+def test_collision_guide_matches_plain(name, shape, cutoff, monkeypatch):
+    _need_card()
+    scene, cfg = _collision_case(name, cutoff)
+    u = torch.from_numpy(waypoints(shape, scene, cfg.collision_margin, len(shape))).cuda()
+    got = collision_guide(u, scene, cfg)
+    # The plain version's lookup in plain torch too: the kernel is held
+    # against plain torch only.
+    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
+    want = collision_guide_plain(u, scene, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    assert not got[..., 2:].any()
+
+
+def test_collision_guide_counts_its_launches_and_refuses_a_strided_view():
+    _need_card()
+    scene, cfg = _collision_case("EnvConveyor2D", 0.01)
+    u = torch.from_numpy(waypoints((64, 64, 4), scene, cfg.collision_margin, 1)).cuda()
+    before = collision_guide.launches
+    for n in range(1, 4):
+        collision_guide(u, scene, cfg)
+        assert collision_guide.launches == before + n
+    strided = torch.zeros(64, 64, 8, device="cuda")[..., :4]
+    with pytest.raises(ValueError):
+        collision_guide(strided, scene, cfg)
+    assert collision_guide.launches == before + 3
+
+
+def test_guide_gradient_makes_one_collision_launch_and_no_lookup():
+    _need_card()
+    scene = make_env("EnvConveyor2D", "cuda").scene
+    gd = GuideData(scene=scene,
+                   normalizer=LimitsNormalizer.from_limits([-1] * 4, [1] * 4, "cuda"),
+                   constraints=empty_constraint_set(1, 1, device="cuda"))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (64, 64, 4)).astype(np.float32)).cuda()
+    lookups, collisions = grid_lookup.launches, collision_guide.launches
+    guide_gradient(x, gd, GuideConfig())
+    assert collision_guide.launches == collisions + 1
+    assert grid_lookup.launches == lookups
