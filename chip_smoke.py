@@ -31,7 +31,20 @@ this file. Phases, one short line each:
    must agree within REPLAY_TOL; and the EnvConveyor2D plan on the CPU,
    reported beside the CPU's own change under a 1e-7 relative change of the
    initial noise
-7. one JSON line of kernel numbers, then the contract line
+7. team: prioritized planning (PP) of the 10-robot circle of
+   EnvEmptyNoWait2D at the same full width, through
+   `PrioritizedPlanning.plan`, with ten planners sharing one model (seeds
+   0-9, as bench.py builds them). A warm-up team pass runs first under
+   torch's sync debug mode, which must report no host sync inside the
+   loop; then the team plan, which must take the device pass, succeed
+   with no conflict (`count_conflicts` of its paths too) and launch the
+   collision guide 10 x 280 times and the lookup 10 times; then the same
+   plan replayed on the card with both kernels routed to their plain
+   versions, which must choose the same indices and agree within
+   REPLAY_TOL. It prints the team's wall seconds, each agent's seconds
+   (CUDA events between the agents) and the launches
+8. one JSON line of kernel numbers (launches by path: the four plans of
+   phase 5, and the team plan of phase 7), then the contract line
    {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
@@ -47,6 +60,7 @@ import signal
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEADLINE_S = 300
@@ -74,6 +88,7 @@ FINALIZE_SHAPE = (64, 379)  # classification points: B=64 x (63 x 6 + 1)
 GUIDE_SHAPE = (64, 64, 4)   # one guide call: B=64 x H=64 waypoints
 NOWAIT_PAIRS = (0, 3, 6)   # of the 10-agent circle (multi_agent_utils.py:82-90)
 CONVEYOR_TASK = ((-0.8, 0.0), (0.8, 0.0))  # straight through the centre box
+TEAM_AGENTS = 10  # the 10-robot circle of bench.py
 
 _phase = ["start"]
 
@@ -94,6 +109,15 @@ def load_planner(env_name: str, start, goal, device: str):
 
     return load(os.path.join(ROOT, "data_trained_models"),
                 os.path.join(ROOT, "data_trajectories"), env_name, start, goal, device)
+
+
+def load_team(env_name: str, starts, goals, device: str):
+    """One planner per agent, sharing one model, seeded 0..n-1."""
+    from mmd_torch.planners.single_agent.mpd import load_planners
+
+    return load_planners(os.path.join(ROOT, "data_trained_models"),
+                         os.path.join(ROOT, "data_trajectories"), env_name, starts, goals,
+                         device=device)
 
 
 @contextlib.contextmanager
@@ -156,11 +180,15 @@ def main() -> int:
     from mmd_torch.costs import guide
     from mmd_torch.costs.guide import GuideConfig, collision_guide_plain
     from mmd_torch.envs.envs import make_env
+    from mmd_torch.experiments.status import TrialSuccessStatus
     from mmd_torch.ops import collision_guide as cg
     from mmd_torch.ops import sdf_kernel
     from mmd_torch.ops.build import build_shared_libraries, find_nvcc
     from mmd_torch.ops.collision_guide import collision_guide
     from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
+    from mmd_torch.parallel.team import PrioritizedTeam, plan_prioritized_scan
+    from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
+    from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
     from mmd_torch.tools.guide_cases import HINGE_CUTOFF, tied_scene, waypoints
 
     # The port is compared against its CPU run: keep float32 convolutions
@@ -348,20 +376,81 @@ def main() -> int:
           f"{max_diff(outs[n], cpu_out):.3e}; cpu under a 1e-7 relative change "
           f"of x_T {max_diff(cpu_out, nudged):.3e} (reported, not held)")
 
+    phase("team")
+    team_starts, team_goals = get_start_goal_pos_circle(TEAM_AGENTS)
+    team_planners = load_team("EnvEmptyNoWait2D", team_starts, team_goals, dev)
+    pp = PrioritizedPlanning(team_planners, team_starts, team_goals)
+    # Warm-up: one team pass with every host sync inside it reported.
+    t0 = time.perf_counter()
+    team, warm_noise = PrioritizedTeam.of(team_planners, pp.margin), pp._team_noise()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            plan_prioritized_scan(team, warm_noise)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    print(f"team: warm-up team pass {time.perf_counter() - t0:.3f} s, host syncs "
+          f"inside the loop: {len(syncs)}")
+    if syncs:
+        raise RuntimeError(f"the team loop synced the host {len(syncs)} times: {syncs[:3]}")
+    team_noise = pp._team_noise()  # the draws of the plan the replay repeats
+    grid_lookup.launches = collision_guide.launches = 0  # team path starts
+    paths, _, status, n_conflicts = pp.plan(noise_l=team_noise)
+    team_launches = {"grid_sdf_lookup": grid_lookup.launches,
+                     "collision_guide": collision_guide.launches}  # team path ends
+    timing = dict(pp.timing)
+    print(f"team: {TEAM_AGENTS}-robot PP in {timing['plan_s']:.3f} s ({timing['device_calls']} "
+          f"host wait(s), {timing['device_s']:.3f} s), status {status}, conflicts "
+          f"{n_conflicts}, device pass {pp.used_scan}, launches collision "
+          f"{team_launches['collision_guide']}, lookup {team_launches['grid_sdf_lookup']}")
+    print("team: agent seconds " + " ".join(f"{a:.4f}" for a in timing.get("agent_s", [])))
+    if not pp.used_scan:
+        raise RuntimeError("the team plan did not take the device pass")
+    if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
+            or count_conflicts(paths, pp.margin) != 0):
+        raise RuntimeError(f"team plan: status {status}, {n_conflicts} conflicts")
+    want = (TEAM_AGENTS * guide_calls, TEAM_AGENTS)
+    if (team_launches["collision_guide"], team_launches["grid_sdf_lookup"]) != want:
+        raise RuntimeError(f"team plan launched {team_launches}, expected {want}")
+    if len(paths) != TEAM_AGENTS or not all(
+            p.shape == (cfg.horizon, cfg.state_dim) and np.isfinite(p).all() for p in paths):
+        raise RuntimeError("team paths not finite of the expected shape")
+    kept = pp.final
+    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+        pp.plan(noise_l=team_noise)
+    diff = float((kept.paths_all - pp.final.paths_all).abs().max())
+    print(f"replay: team plan on the card with both plain versions in "
+          f"{pp.timing['plan_s']:.3f} s, indices equal {kept.ix_best == pp.final.ix_best}, "
+          f"max |trajs_final kernels - plain| {diff:.3e} (tolerance {REPLAY_TOL})")
+    if kept.ix_best != pp.final.ix_best or not diff <= REPLAY_TOL:
+        raise RuntimeError(f"the kernels' and the plain versions' team plans differ by {diff}")
+
     phase("report")
+
+    def launches(name):
+        return {"launches": team_launches[name],
+                "launches_by_path": {"slice": main_launches[name], "team": team_launches[name]}}
+
     kernels = [{
         "name": "grid_sdf_lookup", "route": "cuda", "source": "mmd_torch/csrc/grid_sdf.cu",
-        "replaces": sdf_kernel.REPLACES, "launches": main_launches["grid_sdf_lookup"],
+        "replaces": sdf_kernel.REPLACES, **launches("grid_sdf_lookup"),
         "max_abs_err": lookup_err, "ms": lookup_ms, "plain_ms": lookup_plain_ms,
         "bound_ms": lookup_bound_ms, "bound_by": "bytes", "library_ms": None,
     }, {
         "name": "collision_guide", "route": "cuda",
         "source": "mmd_torch/csrc/collision_guide.cu", "replaces": cg.REPLACES,
-        "launches": main_launches["collision_guide"], "max_abs_err": collision_err,
+        **launches("collision_guide"), "max_abs_err": collision_err,
         "ms": collision_ms, "plain_ms": collision_plain_ms,
         "bound_ms": collision_bound_ms, "bound_by": "bytes", "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels, "plan_s": plan_s,
+                      "team": {"agents": TEAM_AGENTS, "plan_s": timing["plan_s"],
+                               "agent_s": timing.get("agent_s"), "status": str(status),
+                               "conflicts": n_conflicts},
                       "total_s": round(time.perf_counter() - t_start, 3)}))
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@
 A port of `mmd_tpu` with the same module layout. It imports torch, numpy,
 scipy and the standard library only; checkpoints and metadata are read by
 its own readers (`mmd_torch.io`). Entry points run on `cuda` unless the
-caller passes `device="cpu"`. The grid-SDF lookup runs as a hand-written
-CUDA kernel on the card (`mmd_torch/csrc/grid_sdf.cu`) and as plain torch
-on the CPU.
+caller passes `device="cpu"`. Ported so far: the single-robot MPD planner
+(`planners.single_agent.mpd`) and prioritized planning of a team
+(`planners.multi_agent.prioritized_planning`). Two hand-written CUDA
+kernels run on the card, the collision guide (`csrc/collision_guide.cu`)
+and the grid-SDF lookup (`csrc/grid_sdf.cu`); CPU tensors take their plain
+torch versions.
 """

@@ -10,9 +10,8 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class MMDParams:
-    """Global defaults the single-robot planner reads (reference:
-    mmd/config/mmd_params.py:28-64); the multi-agent ones come with the team
-    path."""
+    """Global defaults of the planners (reference:
+    mmd/config/mmd_params.py:28-64)."""
 
     robot_planar_disk_radius: float = 0.05
     horizon: int = 64              # waypoints per trajectory
@@ -24,6 +23,12 @@ class MMDParams:
     weight_grad_cost_soft_constraints: float = 2e-2
     trajectory_duration: float = 5.0
     seed: int = 18
+    runtime_limit: float = 60.0    # seconds a team plan may take
+
+    @property
+    def vertex_constraint_radius(self) -> float:
+        # reference: mmd/config/mmd_params.py:52
+        return self.robot_planar_disk_radius * 2.4
 
 
 params = MMDParams()

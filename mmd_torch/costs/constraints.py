@@ -9,7 +9,7 @@ constant offsets vanish under the gradient, which is all guidance uses.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -108,6 +108,55 @@ def soft_path_cost(q_pos: torch.Tensor, spc: SoftPathConstraints) -> torch.Tenso
     d = torch.linalg.vector_norm(q_pos[:, None, :, :] - spc.points[None], dim=-1)
     pen = relu(spc.radius - d) * spc.mask[None]
     return pen.sum(dim=(1, 2))
+
+
+# A per-waypoint group needs this many points to leave the generic set.
+MIN_PATH_POINTS = 32
+
+
+def split_soft_path_constraints(
+    constraints_l: Sequence, horizon: int, device="cuda",
+) -> Tuple[list, Optional[SoftPathConstraints]]:
+    """Split the one large per-waypoint constraint out of a list (as
+    `mmd_tpu/costs/constraints.py:155` does): (the rest, its
+    SoftPathConstraints or None).
+
+    A constraint qualifies with >= MIN_PATH_POINTS points, every t-range one
+    waypoint wide and one radius; its weight is the hard or soft guidance
+    weight of the config. Only a lone such group is split (the
+    reference builds one per call); with several, all stay generic, each
+    with its own gradient clip. Rows are waypoint-aligned: row r holds the
+    r-th point given for each waypoint, and R is the most points any
+    waypoint has (no padding to a bucket: an absent point is masked).
+    """
+    path_like = [c for c in constraints_l
+                 if len(c.q_l) >= MIN_PATH_POINTS
+                 and all(t1 - t0 == 1 for t0, t1 in c.t_range_l)
+                 and len(set(c.radius_l)) == 1]
+    if len(path_like) != 1:
+        return list(constraints_l), None
+    c = path_like[0]
+    rest = [x for x in constraints_l if x is not c]
+    per_t: dict = {}
+    for q, (t0, _t1) in zip(c.q_l, c.t_range_l):
+        t = int(t0)
+        if 0 <= t < horizon:
+            per_t.setdefault(t, []).append(np.asarray(q, np.float32)[:2])
+    n_rows = max((len(v) for v in per_t.values()), default=0)
+    if n_rows == 0:
+        return rest, None
+    points = np.zeros((n_rows, horizon, 2), np.float32)
+    mask = np.zeros((n_rows, horizon), np.float32)
+    for t, pts in per_t.items():
+        for r, q in enumerate(pts):
+            points[r, t] = q
+            mask[r, t] = 1.0
+    kw = dict(dtype=torch.float32, device=device)
+    return rest, SoftPathConstraints(
+        points=torch.as_tensor(points, **kw), mask=torch.as_tensor(mask, **kw),
+        radius=torch.tensor(float(c.radius_l[0]), **kw),
+        weight=torch.tensor(default_params.weight_grad_cost_soft_constraints if c.is_soft
+                            else default_params.weight_grad_cost_constraints, **kw))
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

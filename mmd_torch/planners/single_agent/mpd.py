@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,15 +20,17 @@ import torch
 from mmd_torch.config import DiffusionConfig, params as default_params
 from mmd_torch.costs.constraints import (
     ConstraintSet,
+    SoftPathConstraints,
     empty_constraint_set,
     pack_constraint_set,
+    split_soft_path_constraints,
 )
 from mmd_torch.costs.guide import GuideConfig, GuideData
 from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.datasets.trajectories import TrajectoryDataset, model_id
-from mmd_torch.models.diffusion import SamplerNoise, guided_p_sample_loop
+from mmd_torch.models.diffusion import HardConds, SamplerNoise, guided_p_sample_loop
 from mmd_torch.planners.single_agent.common import PlannerOutput
-from mmd_torch.tasks.task import classify_trajs
+from mmd_torch.tasks.task import PlanningTask, classify_trajs
 from mmd_torch.train.checkpoint import load_checkpoint
 from mmd_torch.utils.interp import savgol_matrix
 from mmd_torch.utils.metrics import (
@@ -87,6 +89,7 @@ class MPD:
         self.dataset = dataset
         self.device = dataset.device
         self.robot = dataset.robot
+        self.task = PlanningTask(dataset.env, dataset.robot)
         self.scene = dataset.env.scene
         H = dataset.n_support_points
         self.cfg = cfg or DiffusionConfig(
@@ -109,17 +112,37 @@ class MPD:
         self._generator.manual_seed(seed)
         self.n_support_points = H
 
-    def _pack(self, constraints_l: Optional[List]) -> ConstraintSet:
-        """The constraints at their exact size; PyTorch needs no static
-        shapes, so unlike the JAX planner nothing is padded to a bucket."""
-        if not constraints_l:
-            return empty_constraint_set(1, 1, device=self.device)
-        P = max(len(c.q_l) for c in constraints_l)
-        return pack_constraint_set(constraints_l, len(constraints_l), P,
-                                   device=self.device)
+    def _pack(self, constraints_l: Optional[List]
+              ) -> Tuple[ConstraintSet, Optional[SoftPathConstraints]]:
+        """(the generic ConstraintSet, the split-out per-waypoint group or
+        None), as the JAX planner packs them (mpd.py:209-221): the one large
+        per-waypoint group of ECBS and PP costs (B, R, T) as
+        SoftPathConstraints instead of (B, P, H) on the generic path. Sizes
+        are exact; PyTorch needs no static shapes, so nothing is padded to
+        a bucket."""
+        rest, spc = split_soft_path_constraints(constraints_l or [],
+                                                self.n_support_points,
+                                                device=self.device)
+        if not rest:
+            return empty_constraint_set(1, 1, device=self.device), spc
+        P = max(len(c.q_l) for c in rest)
+        return pack_constraint_set(rest, len(rest), P, device=self.device), spc
 
-    def _plan_fresh(self, gd: GuideData, noise: SamplerNoise) -> PlanResult:
-        _, chain = guided_p_sample_loop(self.model, self.schedule, self.hard_conds,
+    def _run(self, constraints_l: Optional[List] = None,
+             noise: Optional[SamplerNoise] = None) -> PlanResult:
+        """One fresh plan on the device; draws from the planner's own
+        generator unless `noise` is given. Nothing is read to the host."""
+        cset, spc = self._pack(constraints_l)
+        gd = GuideData(scene=self.scene, normalizer=self.dataset.normalizer,
+                       constraints=cset, soft_paths=spc)
+        return self._plan_fresh(gd, noise if noise is not None else self.draw_noise(),
+                                self.hard_conds)
+
+    def _plan_fresh(self, gd: GuideData, noise: SamplerNoise,
+                    hard: HardConds) -> PlanResult:
+        """The planner's program (model, configs, scene, finalize) under the
+        hard conditions `hard`: its own, or a team member's."""
+        _, chain = guided_p_sample_loop(self.model, self.schedule, hard,
                                         self.cfg, noise, gd=gd,
                                         guide_cfg=self.guide_cfg)
         return _finalize_plan(chain, gd.normalizer, self.scene, self.robot.radius,
@@ -139,9 +162,7 @@ class MPD:
                 raise ValueError("start/goal differ from the ones bound at "
                                  "construction (mpd.py:318-321)")
         t0 = time.perf_counter()
-        gd = GuideData(scene=self.scene, normalizer=self.dataset.normalizer,
-                       constraints=self._pack(constraints_l))
-        res = self._plan_fresh(gd, noise if noise is not None else self.draw_noise())
+        res = self._run(constraints_l, noise)
         free = res.free_mask.cpu().numpy()  # waits for the plan to finish
         t_total = time.perf_counter() - t0
         return self._to_output(res, free, constraints_l, t_total)
@@ -174,14 +195,25 @@ class MPD:
         return out
 
 
-def load_planner(models_root: str, trajectories_root: str, env_name: str,
-                 start_state_pos, goal_state_pos, device="cuda") -> MPD:
-    """An MPD for `env_name` from the repository's checkpoint and dataset
+def load_planners(models_root: str, trajectories_root: str, env_name: str,
+                  starts: Sequence, goals: Sequence, seeds: Optional[Sequence[int]] = None,
+                  device="cuda") -> List[MPD]:
+    """One MPD per (start, goal) for `env_name`, all sharing one model,
+    schedule and dataset loaded from the repository's checkpoint and dataset
     metadata, with the checkpoint's training normalizer (as bench.py:54-66
-    builds its planners)."""
+    builds its planners; planner i is seeded seeds[i], by default i)."""
     mid = model_id(env_name)
     model, schedule, info = load_checkpoint(os.path.join(models_root, mid), device=device)
     normalizer = LimitsNormalizer.from_limits(info["normalizer_mins"],
                                               info["normalizer_maxs"], device=device)
     dataset = TrajectoryDataset.load(trajectories_root, mid, normalizer, device=device)
-    return MPD(model, schedule, dataset, start_state_pos, goal_state_pos)
+    seeds = range(len(starts)) if seeds is None else seeds
+    return [MPD(model, schedule, dataset, s, g, seed=seed)
+            for s, g, seed in zip(starts, goals, seeds)]
+
+
+def load_planner(models_root: str, trajectories_root: str, env_name: str,
+                 start_state_pos, goal_state_pos, device="cuda") -> MPD:
+    """An MPD for one start and goal, seeded as MPD's default."""
+    return load_planners(models_root, trajectories_root, env_name, [start_state_pos],
+                         [goal_state_pos], [default_params.seed], device)[0]

@@ -11,12 +11,13 @@ Twin of `mmd_tpu/tasks/task.py` (reference: torch_robotics/tasks/tasks.py).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from mmd_torch.envs.envs import WS_BOUNDARY_SCALE, SceneData
+from mmd_torch.envs.envs import WS_BOUNDARY_SCALE, Env2D, SceneData, make_env
 from mmd_torch.envs.grid_sdf import grid_sdf_pair
+from mmd_torch.robots.disk import DiskRobot
 from mmd_torch.utils.interp import interpolate_traj_via_points
 
 
@@ -54,3 +55,24 @@ def classify_trajs(scene: SceneData, trajs: torch.Tensor, radius: float,
     coll_free = ~torch.any(wp_coll, dim=-1)
     in_limits = torch.all((q >= q_min) & (q <= q_max), dim=-1).all(dim=-1)
     return coll_free & in_limits, wp_coll
+
+
+class PlanningTask:
+    """An environment and a robot, with the collision query the team
+    planners ask (tasks.py:22-331)."""
+
+    def __init__(self, env: Env2D, robot: Optional[DiskRobot] = None):
+        self.env = env
+        self.scene = env.scene
+        self.robot = robot or DiskRobot.make(device=env.scene.ws_min.device)
+        # The reference classifies at the robot's radius (tasks.py:249-254).
+        self.margin = self.robot.radius
+
+    def compute_collision(self, x: torch.Tensor) -> torch.Tensor:
+        """States (..., D) -> (...,) bool: the position in collision with the
+        map or its walls, at the robot's radius."""
+        return waypoint_in_collision(self.scene, self.robot.get_position(x), self.margin)
+
+
+def make_task(env_name: str, device="cuda") -> PlanningTask:
+    return PlanningTask(make_env(env_name, device))

@@ -1,6 +1,7 @@
-"""Where one MPD plan's time goes on the card.
+"""Where one MPD plan's time, or one PP team plan's, goes on the card.
 
-    python -m mmd_torch.tools.profile_plan
+    python -m mmd_torch.tools.profile_plan           # one robot
+    python -m mmd_torch.tools.profile_plan --team    # the 10-robot PP team
 
 Plans EnvEmptyNoWait2D pair 0 of the 10-agent circle at full width (B=64,
 H=64, 25+1 steps, 14 guided steps x 20 guide iterations) after one warm-up
@@ -26,10 +27,21 @@ for that plan only.
 - build_s: host seconds to build both CUDA sources into empty directories,
   one nvcc after the other ("serial") and both started together
   ("parallel", as chip_smoke.py builds them), in turns, twice each
+
+With --team it plans the 10-robot circle of EnvEmptyNoWait2D with
+`PrioritizedPlanning` at the same width (planners seeded 0-9 sharing one
+model) after one warm-up team plan, and prints the card and one JSON line:
+- plan_s: host seconds of 3 team plans (`timing["plan_s"]`, each ending in
+  the plan's one read of the device), agent_s: each agent's seconds in
+  them (CUDA events between the agents)
+- busy_s, idle_share, idle_share_traced, kernels_per_plan: as above, for
+  one team plan traced with torch.profiler (device activity only)
+- port_kernels: each port kernel's launches and device time in that plan
 Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -52,6 +64,7 @@ from mmd_torch.planners.single_agent.mpd import _finalize_plan, load_planner
 from mmd_torch.utils.interp import interpolate_traj_via_points
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+TEAM_AGENTS = 10  # the 10-robot circle of bench.py
 # Port kernels by the name the profiler gives their device events.
 PORT_KERNELS = {"collision_guide": "collision_guide_kernel",
                 "grid_sdf_lookup": "grid_sdf_lookup_kernel"}
@@ -111,10 +124,12 @@ def _busy_us(events) -> float:
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def _traced(fn):
-    """Run fn under torch.profiler: (host seconds, the device events)."""
+def _traced(fn, host: bool = True):
+    """Run fn under torch.profiler, tracing host ops too unless host is
+    False: (host seconds, the device events)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -123,7 +138,49 @@ def _traced(fn):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _port_kernels(events) -> dict:
+    port = {}
+    for kernel, tag in PORT_KERNELS.items():
+        hits = [e.time_range.elapsed_us() for e in events if tag in e.name]
+        port[kernel] = {"launches": len(hits), "device_us": sum(hits),
+                        "device_us_per_launch": sum(hits) / len(hits) if hits else None}
+    return port
+
+
+def profile_team(card: str) -> dict:
+    """The PP team plan's numbers (module docstring, --team)."""
+    from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
+    from mmd_torch.planners.single_agent.mpd import load_planners
+
+    starts, goals = get_start_goal_pos_circle(TEAM_AGENTS)
+    planners = load_planners(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
+                             starts, goals, device="cuda")
+    pp = PrioritizedPlanning(planners, starts, goals)
+    pp.plan()  # warm-up
+    plan_s, agent_s, outcome = [], [], []
+    for _ in range(3):
+        _, _, status, n_conflicts = pp.plan()
+        plan_s.append(pp.timing["plan_s"])
+        agent_s.append(pp.timing.get("agent_s"))
+        outcome.append([str(status), n_conflicts, pp.used_scan])
+    traced_s, events = _traced(pp.plan, host=False)
+    busy_s = _busy_us(events) * 1e-6 if events else None  # None: not measured
+    untraced = statistics.median(plan_s)
+    return {"team": {
+        "agents": TEAM_AGENTS, "plan_s": plan_s, "agent_s": agent_s, "outcome": outcome,
+        "busy_s": busy_s, "traced_plan_s": traced_s, "kernels_per_plan": len(events),
+        "idle_share": None if busy_s is None else 1.0 - busy_s / untraced,
+        "idle_share_traced": None if busy_s is None else 1.0 - busy_s / traced_s,
+        "port_kernels": _port_kernels(events)},
+        "device": torch.cuda.get_device_name(0), "card": card}
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--team", action="store_true",
+                        help="profile the 10-robot PP team plan instead of one robot's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_plan: needs a CUDA card", file=sys.stderr)
         return 2
@@ -132,6 +189,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
+    if args.team:
+        print(card)
+        print(json.dumps(profile_team(card)))
+        return 0
     build_s = build_seconds()
     starts, goals = get_start_goal_pos_circle(10)
     planner = load_planner(os.path.join(ROOT, "data_trained_models"),
@@ -151,7 +212,7 @@ def main() -> int:
     cfg, B = planner.cfg, planner.cfg.n_samples
     x = planner.draw_noise().x_T
     gd = GuideData(scene=planner.scene, normalizer=planner.dataset.normalizer,
-                   constraints=planner._pack(None))
+                   constraints=planner._pack(None)[0])
     report, events = {}, {}
     for name, path in paths.items():
         with path():
@@ -172,11 +233,7 @@ def main() -> int:
     for e in events["kernel"]:
         per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    port = {}
-    for kernel, tag in PORT_KERNELS.items():
-        hits = [e.time_range.elapsed_us() for e in events["kernel"] if tag in e.name]
-        port[kernel] = {"launches": len(hits), "device_us": sum(hits),
-                        "device_us_per_launch": sum(hits) / len(hits) if hits else None}
+    port = _port_kernels(events["kernel"])
 
     tb = torch.full((B,), 12, dtype=torch.int64, device="cuda")
     chain = torch.stack([x] * (len(cfg.step_indices()) + 1))

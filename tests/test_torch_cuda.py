@@ -12,10 +12,16 @@ run on the card over the plain torch lookup): it does the same float32 operation
 the clip's norm summed as (a^2 + b^2) + (c^2 + d^2), as torch's CUDA
 reduction sums four channels.
 """
+import dataclasses
+import os
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
+from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
+from mmd_torch.costs import guide as guide_module
 from mmd_torch.costs.constraints import empty_constraint_set
 from mmd_torch.costs.guide import GuideConfig, GuideData, collision_guide_plain, guide_gradient
 from mmd_torch.datasets.normalization import LimitsNormalizer
@@ -24,9 +30,13 @@ from mmd_torch.envs.grid_sdf import grid_sdf_pair
 from mmd_torch.ops import sdf_kernel
 from mmd_torch.ops.collision_guide import collision_guide
 from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
+from mmd_torch.parallel.team import PrioritizedTeam, plan_prioritized_scan
+from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
+from mmd_torch.planners.single_agent.mpd import load_planners
 from mmd_torch.tools.guide_cases import HINGE_CUTOFF, tied_scene, waypoints
 
 pytestmark = pytest.mark.gpu
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _need_card():
@@ -150,3 +160,40 @@ def test_guide_gradient_makes_one_collision_launch_and_no_lookup():
     guide_gradient(x, gd, GuideConfig())
     assert collision_guide.launches == collisions + 1
     assert grid_lookup.launches == lookups
+
+
+def test_pp_team_pass_launches_per_agent_syncs_nothing_and_replays_exactly(monkeypatch):
+    """The PP device pass at 3 agents, B=8, 2 guide iterations a step: each
+    agent launches the collision guide once per guide call and the lookup
+    once, the loop makes no host sync (torch's sync debug mode reports
+    none), and with both kernels routed to their plain versions the pass
+    is equal."""
+    _need_card()
+    starts, goals = get_start_goal_pos_circle(3)
+    planners = load_planners(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
+                             starts, goals, device="cuda")
+    for p in planners:
+        p.cfg = dataclasses.replace(p.cfg, n_samples=8, n_guide_steps=2)
+    pp = PrioritizedPlanning(planners, starts, goals)
+    team = PrioritizedTeam.of(planners, pp.margin)
+    plan_prioritized_scan(team, pp._team_noise())  # builds and warms up
+    noise = pp._team_noise()
+    before = (collision_guide.launches, grid_lookup.launches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = plan_prioritized_scan(team, noise)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+    calls = planners[0].cfg.n_guided_steps() * planners[0].cfg.n_guide_steps
+    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
+        (3 * calls, 3)
+    assert len(out.clock.seconds()) == 3
+    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
+    monkeypatch.setattr(guide_module, "collision_guide", collision_guide_plain)
+    plain = plan_prioritized_scan(team, noise)
+    assert torch.equal(out.trajs, plain.trajs) and torch.equal(out.ix, plain.ix)

@@ -4,7 +4,7 @@ That machine has torch, numpy and scipy but no jax, flax, yaml or msgpack.
 In a fresh interpreter those (and mmd_tpu) are blocked with a meta-path
 finder that raises; then every module of mmd_torch is imported, and
 chip_smoke.py's CPU-reachable setup runs: the readers, load_checkpoint on
-the CPU and a short plan. chip_smoke.py itself must exit non-zero and print
+the CPU, a short plan and a short 2-robot PP team plan. chip_smoke.py itself must exit non-zero and print
 no result without a CUDA card, and when it stands alone in a directory.
 """
 import os
@@ -53,6 +53,14 @@ GUARDED = textwrap.dedent("""
     planner.cfg = dataclasses.replace(planner.cfg, n_samples=2, n_guide_steps=1)
     out = planner()
     assert out.trajs_final.shape == (2, 64, 4)
+    from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
+    team_starts, team_goals = get_start_goal_pos_circle(2)
+    team = cs.load_team("EnvEmptyNoWait2D", team_starts, team_goals, "cpu")
+    for p in team:
+        p.cfg = dataclasses.replace(p.cfg, n_samples=2, n_guide_steps=1)
+    pp = PrioritizedPlanning(team, team_starts, team_goals)
+    paths, _, status, _ = pp.plan()
+    assert pp.used_scan and len(paths) == 2 and paths[0].shape == (64, 4)
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
