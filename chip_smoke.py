@@ -43,9 +43,25 @@ this file. Phases, one short line each:
    versions, which must choose the same indices and agree within
    REPLAY_TOL. It prints the team's wall seconds, each agent's seconds
    (CUDA events between the agents) and the launches
-8. one JSON line of kernel numbers (launches by path: the four plans of
-   phase 5, and the team plan of phase 7), then the contract line
-   {"ok": true, "device": {...}}
+8. cbs: the XECBS search of the 10-robot circle, the main path of the
+   repository's bench.py (bfloat16 UNet, DDPM, B=64, H=64), through
+   `CBS.plan`, with ten planners sharing one model seeded as bench.py
+   seeds them. The bfloat16 forward is held first against the float32 one
+   at B=64 (BF16_TOL of the largest |eps|). A warm-up search runs under
+   torch's sync debug mode: every host sync it reports must come from the
+   search's one reading function (`cbs.to_host`), and inside the ECBS root
+   there must be at most one read per agent. Then the measured search,
+   which must succeed with no conflict (`count_conflicts` of its paths
+   too) and launch the collision guide exactly 280 times per fresh plan
+   and 80 per local replan and the lookup once per plan, by the search's
+   own count of its plans; then the same search replayed on the card (the
+   generators restored) with both kernels routed to their plain versions,
+   which must make the same expansions and choose the same indices, and
+   agree within REPLAY_TOL. It prints the wall seconds, the expansions,
+   the host's waits by phase, the plans by kind and the UNet forwards
+9. one JSON line of kernel numbers (launches: the XECBS search's; launches
+   by path: the four plans of phase 5, the team plan of phase 7 and the
+   search of phase 8), then the contract line {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
 DEADLINE_S seconds does the same. Without a CUDA device it exits non-zero
@@ -89,6 +105,11 @@ GUIDE_SHAPE = (64, 64, 4)   # one guide call: B=64 x H=64 waypoints
 NOWAIT_PAIRS = (0, 3, 6)   # of the 10-agent circle (multi_agent_utils.py:82-90)
 CONVEYOR_TASK = ((-0.8, 0.0), (0.8, 0.0))  # straight through the centre box
 TEAM_AGENTS = 10  # the 10-robot circle of bench.py
+# The bfloat16 forward against the float32 one, on the card: both round to
+# bf16's 8 significant bits in every conv and dense layer; JAX's own bf16
+# forward differs from its float32 one by 0.7% of the largest |eps| on the
+# CPU (tests/test_torch_unet.py). Held at 2% of the largest |eps|.
+BF16_TOL = 2e-2
 
 _phase = ["start"]
 
@@ -183,7 +204,7 @@ def main() -> int:
     from mmd_torch.experiments.status import TrialSuccessStatus
     from mmd_torch.ops import collision_guide as cg
     from mmd_torch.ops import sdf_kernel
-    from mmd_torch.ops.build import build_shared_libraries, find_nvcc
+    from mmd_torch.ops.build import find_nvcc, load_kernels
     from mmd_torch.ops.collision_guide import collision_guide
     from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
     from mmd_torch.parallel.team import PrioritizedTeam, plan_prioritized_scan
@@ -207,9 +228,7 @@ def main() -> int:
 
     phase("build")
     t0 = time.perf_counter()
-    build_shared_libraries([sdf_kernel.SOURCE, cg.SOURCE])
-    sdf_kernel.load_library()
-    cg.load_library()
+    load_kernels()
     print(f"build: grid_sdf.cu and collision_guide.cu with {find_nvcc()} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -429,11 +448,15 @@ def main() -> int:
     if kept.ix_best != pp.final.ix_best or not diff <= REPLAY_TOL:
         raise RuntimeError(f"the kernels' and the plain versions' team plans differ by {diff}")
 
+    phase("cbs")
+    cbs = run_cbs_phase(dev, cfg, plain_lookup)
+
     phase("report")
 
     def launches(name):
-        return {"launches": team_launches[name],
-                "launches_by_path": {"slice": main_launches[name], "team": team_launches[name]}}
+        return {"launches": cbs["launches"][name],
+                "launches_by_path": {"slice": main_launches[name], "team": team_launches[name],
+                                     "xecbs": cbs["launches"][name]}}
 
     kernels = [{
         "name": "grid_sdf_lookup", "route": "cuda", "source": "mmd_torch/csrc/grid_sdf.cu",
@@ -451,12 +474,136 @@ def main() -> int:
                       "team": {"agents": TEAM_AGENTS, "plan_s": timing["plan_s"],
                                "agent_s": timing.get("agent_s"), "status": str(status),
                                "conflicts": n_conflicts},
+                      "xecbs": cbs["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3)}))
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+def _sync_origins(caught):
+    """(syncs from `cbs.to_host`, other syncs) among caught warnings of
+    torch's sync debug mode, by the Python line that made each."""
+    import inspect
+
+    from mmd_torch.planners.multi_agent import cbs as cbs_module
+
+    lines, first = inspect.getsourcelines(cbs_module.to_host)
+    span = range(first, first + len(lines))
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    ours = [w for w in syncs if os.path.samefile(w.filename, cbs_module.__file__)
+            and w.lineno in span]
+    return ours, [f"{w.filename}:{w.lineno}" for w in syncs if w not in ours]
+
+
+def run_cbs_phase(dev, cfg, plain_lookup):
+    """Phase 8 (module docstring): the XECBS search of bench.py's main path."""
+    import numpy as np
+    import torch
+
+    from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
+    from mmd_torch.costs import guide
+    from mmd_torch.costs.guide import collision_guide_plain
+    from mmd_torch.experiments.status import TrialSuccessStatus
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+    from mmd_torch.planners.multi_agent.cbs import CBS
+    from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
+    from mmd_torch.planners.single_agent.mpd import load_planners
+    from mmd_torch.train.checkpoint import load_checkpoint
+
+    starts, goals = get_start_goal_pos_circle(TEAM_AGENTS)
+    planners = load_planners(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
+                             starts, goals, seeds=[0 * 1000 + i for i in range(TEAM_AGENTS)],
+                             device=dev, bf16=True)
+    p0 = planners[0]
+    f32_model, _, _ = load_checkpoint(os.path.join(
+        ROOT, "data_trained_models", "EnvEmptyNoWait2D-RobotPlanarDisk"), device=dev)
+    x = p0.draw_noise().x_T
+    t = torch.arange(x.shape[0], device=dev) % p0.cfg.n_diffusion_steps
+    with torch.no_grad():
+        eps_bf16, eps_f32 = p0.model(x, t), f32_model(x, t)
+    bf16_err = float((eps_bf16 - eps_f32).abs().max() / eps_f32.abs().max())
+    print(f"cbs: bf16 UNet forward at B={x.shape[0]} against float32: max |diff| "
+          f"{bf16_err:.4f} of max |eps| (tolerance {BF16_TOL})")
+    if eps_bf16.dtype != torch.float32 or not bf16_err <= BF16_TOL:
+        raise RuntimeError(f"bf16 forward off by {bf16_err} of max |eps|")
+
+    def search():
+        return CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
+
+    warm = search()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, warm_exp, warm_status, _ = warm.plan(runtime_limit=600)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    ours, others = _sync_origins(caught)
+    root_reads = warm.timing.get("device_root_calls", 0) - 1  # the last one follows the loop
+    print(f"cbs: warm-up XECBS search {time.perf_counter() - t0:.3f} s, {warm_status}, "
+          f"{warm_exp} expansions; host syncs: {len(ours)} from cbs.to_host "
+          f"({warm.timing['device_calls']} reads), {len(others)} elsewhere; reads inside "
+          f"the ECBS root: {root_reads} for {TEAM_AGENTS} agents")
+    if others:
+        raise RuntimeError(f"host syncs outside cbs.to_host: {others[:5]}")
+    if root_reads > TEAM_AGENTS:
+        raise RuntimeError(f"{root_reads} reads inside the ECBS root")
+
+    kept_states = [p._generator.get_state() for p in planners]
+    xecbs = search()
+    grid_lookup.launches = collision_guide.launches = 0  # xecbs path starts
+    paths, n_exp, status, n_conflicts = xecbs.plan(runtime_limit=600)
+    launches = {"grid_sdf_lookup": grid_lookup.launches,
+                "collision_guide": collision_guide.launches}  # xecbs path ends
+    timing = dict(xecbs.timing)
+    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
+    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
+    fresh, local = timing["plans_fresh"], timing["plans_local"]
+    waits = {k[len("device_"):-2]: v for k, v in timing.items()
+             if k.startswith("device_") and k.endswith("_s") and k != "device_s"}
+    print(f"cbs: {TEAM_AGENTS}-robot XECBS (bf16, DDPM) in {timing['plan_s']:.3f} s, {status}, "
+          f"{n_conflicts} conflicts, {n_exp} expansions; host waits {timing['device_calls']} "
+          f"({timing['device_s']:.3f} s) by phase {waits}; plans fresh {fresh}, local {local}; "
+          f"UNet forwards {timing['unet_forwards']}; launches collision "
+          f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']}")
+    if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
+            or count_conflicts(paths, xecbs.margin) != 0):
+        raise RuntimeError(f"XECBS search: status {status}, {n_conflicts} conflicts")
+    want = (per_fresh * fresh + per_local * local, fresh + local)
+    if (launches["collision_guide"], launches["grid_sdf_lookup"]) != want:
+        raise RuntimeError(f"XECBS search launched {launches}, expected {want} "
+                           f"({fresh} fresh plans, {local} local replans)")
+    if len(paths) != TEAM_AGENTS or not all(
+            p.shape == (cfg.horizon, cfg.state_dim) and np.isfinite(p).all() for p in paths):
+        raise RuntimeError("XECBS paths not finite of the expected shape")
+
+    kept = xecbs.final
+    for p, state in zip(planners, kept_states):
+        p._generator.set_state(state)
+    replay = search()
+    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+        _, replay_exp, _, _ = replay.plan(runtime_limit=600)
+    diff = float((kept.paths_all - replay.final.paths_all).abs().max())
+    same = replay_exp == n_exp and kept.ix_best == replay.final.ix_best
+    print(f"replay: XECBS search on the card with both plain versions in "
+          f"{replay.timing['plan_s']:.3f} s, {replay_exp} expansions, indices equal "
+          f"{kept.ix_best == replay.final.ix_best}, max |trajs_final kernels - plain| "
+          f"{diff:.3e} (tolerance {REPLAY_TOL})")
+    if not same or not diff <= REPLAY_TOL:
+        raise RuntimeError(f"the kernels' and the plain versions' searches differ: "
+                           f"expansions {n_exp}/{replay_exp}, max diff {diff}")
+    return {"launches": launches, "summary": {
+        "agents": TEAM_AGENTS, "plan_s": timing["plan_s"], "expansions": n_exp,
+        "status": str(status), "conflicts": n_conflicts, "device_s": timing["device_s"],
+        "device_calls": timing["device_calls"], "waits_s": waits, "plans_fresh": fresh,
+        "plans_local": local, "unet_forwards": timing["unet_forwards"],
+        "bf16_err": bf16_err, "warmup_syncs": len(ours), "root_reads": root_reads}}
+
 
 if __name__ == "__main__":
     sys.exit(main())

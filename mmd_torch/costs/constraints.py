@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from mmd_torch.config import params as default_params
+from mmd_torch.utils.transfer import to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +41,7 @@ class ConstraintSet:
 
 def _as_set(arrays: dict, device) -> ConstraintSet:
     return ConstraintSet(n_active=int(arrays["active"].sum()),
-                         **{k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                         **{k: to_device(v, device, torch.float32)
                             for k, v in arrays.items()})
 
 
@@ -153,10 +154,10 @@ def split_soft_path_constraints(
             mask[r, t] = 1.0
     kw = dict(dtype=torch.float32, device=device)
     return rest, SoftPathConstraints(
-        points=torch.as_tensor(points, **kw), mask=torch.as_tensor(mask, **kw),
-        radius=torch.tensor(float(c.radius_l[0]), **kw),
-        weight=torch.tensor(default_params.weight_grad_cost_soft_constraints if c.is_soft
-                            else default_params.weight_grad_cost_constraints, **kw))
+        points=to_device(points, device), mask=to_device(mask, device),
+        radius=torch.full((), float(c.radius_l[0]), **kw),
+        weight=torch.full((), default_params.weight_grad_cost_soft_constraints if c.is_soft
+                          else default_params.weight_grad_cost_constraints, **kw))
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

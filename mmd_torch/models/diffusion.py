@@ -2,7 +2,7 @@
 
 Twin of `mmd_tpu/models/diffusion.py` (reference: mmd/models/
 diffusion_models/diffusion_model_base.py:48-461, sample_functions.py:41-107)
-for fresh plans. Semantics:
+for fresh plans and XCBS's warm-started local inference. Semantics:
 - step indices run i = n_steps-1 ... -n_no_noise; i < 0 runs the model at
   t=0 and adds no noise (sample_functions.py:53-57, 76-78)
 - x0 is predicted from epsilon and clamped to [-1, 1]
@@ -13,8 +13,13 @@ for fresh plans. Semantics:
 - the chain stacks the initial noise and every step's output:
   (n_steps + n_no_noise + 1, B, H, D) (diffusion_model_base.py:321-351)
 
-Noise is injectable: `SamplerNoise` holds the initial x_T and one normal
-draw per step; without it, draws come from the caller's `torch.Generator`.
+- a warm-started loop (`run_local_inference`) q-samples a seed batch at
+  t = n_noising_steps and runs n_denoising_steps + n_no_noise steps from it
+  (diffusion_model_base.py:353-421)
+
+Noise is injectable: `SamplerNoise` holds the loop's first draw (x_T of a
+fresh loop, the q-sample noise of a warm-started one) and one normal draw
+per step; without it, draws come from the caller's `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -56,15 +61,18 @@ def make_start_goal_hard_conds(start_state: torch.Tensor, goal_state: torch.Tens
 
 @dataclasses.dataclass(frozen=True)
 class SamplerNoise:
-    """The normal draws of one fresh sampling loop."""
+    """The normal draws of one sampling loop."""
 
-    x_T: torch.Tensor   # (B, H, D) initial noise
+    x_T: torch.Tensor   # (B, H, D) x_T, or a warm start's q-sample noise
     steps: torch.Tensor  # (n_steps + n_no_noise, B, H, D), one per step
 
     @staticmethod
-    def draw(cfg: DiffusionConfig, generator: torch.Generator, device) -> "SamplerNoise":
+    def draw(cfg: DiffusionConfig, generator: torch.Generator, device,
+             n_steps: Optional[int] = None) -> "SamplerNoise":
+        """The draws of a loop of n_steps noisy steps (all of them by
+        default; a local replan's n_denoising_steps)."""
         shape = (cfg.n_samples, cfg.horizon, cfg.state_dim)
-        n = len(cfg.step_indices())
+        n = len(cfg.step_indices(n_steps))
         kw = dict(generator=generator, device=device, dtype=torch.float32)
         return SamplerNoise(x_T=torch.randn(shape, **kw),
                             steps=torch.randn((n, *shape), **kw))
@@ -103,13 +111,25 @@ def _ddpm_step(model: nn.Module, schedule: DiffusionSchedule, x: torch.Tensor,
                gd: Optional[GuideData], cfg: DiffusionConfig,
                guide_cfg: Optional[GuideConfig], guided: bool) -> torch.Tensor:
     """One reverse step at index i with this step's normal draw `noise`."""
-    t = max(i, 0)
-    tb = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-    eps = model(x, tb)
-    x0 = predict_start_from_noise(schedule, x, tb, eps)
-    x0 = torch.clamp(x0, -1.0, 1.0)
-    x = q_posterior_mean(schedule, x0, x, tb)
+    return _guide_and_noise(schedule, _denoised_mean(model, schedule, x, i), i, noise, hard,
+                            gd, cfg, guide_cfg, guided)
 
+
+def _denoised_mean(model: nn.Module, schedule: DiffusionSchedule, x: torch.Tensor,
+                   i: int) -> torch.Tensor:
+    """A step's first half: the posterior mean from the model's epsilon."""
+    tb = torch.full((x.shape[0],), max(i, 0), dtype=torch.int64, device=x.device)
+    x0 = torch.clamp(predict_start_from_noise(schedule, x, tb, model(x, tb)), -1.0, 1.0)
+    return q_posterior_mean(schedule, x0, x, tb)
+
+
+def _guide_and_noise(schedule: DiffusionSchedule, x: torch.Tensor, i: int,
+                     noise: torch.Tensor, hard: HardConds, gd: Optional[GuideData],
+                     cfg: DiffusionConfig, guide_cfg: Optional[GuideConfig],
+                     guided: bool) -> torch.Tensor:
+    """A step's second half, from the posterior mean x: the guide
+    iterations, then the step's noise."""
+    t = max(i, 0)
     if guided and gd is not None:
         for _ in range(cfg.n_guide_steps):
             x = hard.apply(x + guide_gradient(x, gd, guide_cfg))
@@ -129,12 +149,17 @@ def guided_p_sample_loop(
     noise: SamplerNoise,
     gd: Optional[GuideData] = None,
     guide_cfg: Optional[GuideConfig] = None,
+    n_diffusion_steps: Optional[int] = None,
+    warm_start: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full reverse process from x_T. Returns (x_final, chain (S+1, B, H, D))."""
-    steps = cfg.step_indices()
+    """The reverse process over n_diffusion_steps noisy steps (all of them
+    by default) and the noise-free ones, from noise.x_T or, if given, from
+    `warm_start` (diffusion.py:129-158). Returns (x_final, chain (S+1, B,
+    H, D))."""
+    steps = cfg.step_indices(n_diffusion_steps)
     if noise.steps.shape[0] != len(steps):
         raise ValueError(f"need {len(steps)} step draws, got {noise.steps.shape[0]}")
-    x = hard.apply(noise.x_T)
+    x = hard.apply(noise.x_T if warm_start is None else warm_start)
     chain = [x]
     for n, i in enumerate(steps):
         guided = gd is not None and i < cfg.t_start_guide
@@ -151,4 +176,23 @@ def run_inference(model: nn.Module, schedule: DiffusionSchedule, hard: HardConds
     (n_steps + n_no_noise + 1, B, H, D) (diffusion_model_base.py:321-351)."""
     _, chain = guided_p_sample_loop(model, schedule, hard, cfg, noise,
                                     gd=gd, guide_cfg=guide_cfg)
+    return chain
+
+
+def run_local_inference(model: nn.Module, schedule: DiffusionSchedule, hard: HardConds,
+                        gd: GuideData, seed_trajs: torch.Tensor, noise: SamplerNoise,
+                        cfg: DiffusionConfig, guide_cfg: GuideConfig,
+                        n_noising_steps: int = 3,
+                        n_denoising_steps: int = 3) -> torch.Tensor:
+    """XCBS experience reuse: q-sample the normalized seed batch at
+    t = n_noising_steps with noise.x_T, then denoise n_denoising_steps (and
+    the noise-free steps) under the current constraints; returns the
+    normalized chain (n_denoising_steps + n_no_noise + 1, B, H, D)
+    (diffusion.py:202-219)."""
+    t = torch.full((seed_trajs.shape[0],), n_noising_steps, dtype=torch.int64,
+                   device=seed_trajs.device)
+    warm = q_sample(schedule, seed_trajs, t, noise.x_T)
+    _, chain = guided_p_sample_loop(model, schedule, hard, cfg, noise, gd=gd,
+                                    guide_cfg=guide_cfg,
+                                    n_diffusion_steps=n_denoising_steps, warm_start=warm)
     return chain

@@ -16,10 +16,25 @@ state_dict:
   `transpose_kernel=False`: a plain correlation of the 2x-dilated input
   padded by (2, 2). torch's `ConvTranspose1d(k=4, s=2, padding=1)` computes
   the same with the kernel flipped along k, and gives the same 2H outputs.
+
+`bf16_model` gives the forward in bfloat16, as flax's `dtype=bfloat16`
+computes it (`mmd_tpu/models/temporal_unet.py:216-220`), rounding where
+flax's ops round:
+- convolutions and dense layers multiply in bfloat16 on bfloat16 copies of
+  the float32 parameters, and add the bias after the product, each result
+  rounded to bfloat16 (flax's `nn.Conv`/`nn.Dense` add it as a second op);
+- GroupNorm runs in float32 with the float32 parameters themselves, and
+  its output is rounded to bfloat16;
+- Mish's softplus is jax.nn.softplus's op sequence, max(x, 0) +
+  log1p(exp(-|x|)), each op rounded to bfloat16;
+- the sinusoidal embedding is float32, and the result is handed back in
+  the caller's dtype.
 """
 from __future__ import annotations
 
+import copy
 import math
+import weakref
 from typing import Dict, Tuple
 
 import numpy as np
@@ -31,6 +46,8 @@ GROUPNORM_EPS = 1e-6  # flax nn.GroupNorm default
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:  # flax's bfloat16 softplus (module docstring)
+        return x * torch.tanh(torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs())))
     return x * torch.tanh(F.softplus(x))
 
 
@@ -59,7 +76,10 @@ class TimeEncoder(nn.Module):
         self.dense1 = nn.Linear(dim * 4, dim_out)
 
     def forward(self, t):
-        return self.dense1(mish(self.dense0(self.pos(t))))
+        # The embedding is float32; a bfloat16 twin's dense layers take it
+        # in their own dtype.
+        h = self.pos(t).to(self.dense0.weight.dtype)
+        return self.dense1(mish(self.dense0(h)))
 
 
 class Conv1dBlock(nn.Module):
@@ -71,7 +91,10 @@ class Conv1dBlock(nn.Module):
         self.norm = nn.GroupNorm(n_groups, c_out, eps=GROUPNORM_EPS)
 
     def forward(self, x):
-        return mish(self.norm(self.conv(x)))
+        h = self.conv(x)
+        # GroupNorm runs in its parameters' dtype (float32 in the bfloat16
+        # twin too, as flax's statistics do), then rounds back to h's.
+        return mish(self.norm(h.to(self.norm.weight.dtype)).to(h.dtype))
 
 
 class ResidualTemporalBlock(nn.Module):
@@ -139,6 +162,60 @@ class TemporalUnet(nn.Module):
             x = up(res1(res0(x, c), c))
         x = self.final_conv(self.final_block(x))
         return x.transpose(1, 2)
+
+
+class _BiasAfter(nn.Module):
+    """A conv or dense layer that adds its bias after the product, as a
+    separate op."""
+
+    def __init__(self, layer: nn.Module):
+        super().__init__()
+        self.layer = layer
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return self.layer.weight
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.layer
+        if isinstance(m, nn.Linear):
+            return F.linear(x, m.weight) + m.bias
+        if isinstance(m, nn.ConvTranspose1d):
+            y = F.conv_transpose1d(x, m.weight, None, m.stride, m.padding, m.output_padding,
+                                   m.groups, m.dilation)
+        else:
+            y = F.conv1d(x, m.weight, None, m.stride, m.padding, m.dilation, m.groups)
+        return y + m.bias[:, None]
+
+
+class Bf16Unet(nn.Module):
+    """A TemporalUnet's forward in bfloat16 (module docstring); the output
+    is in the input's dtype."""
+
+    def __init__(self, model: TemporalUnet):
+        super().__init__()
+        self.net = copy.deepcopy(model)
+        for m in list(self.net.modules()):
+            if not isinstance(m, nn.GroupNorm):
+                for p in m.parameters(recurse=False):
+                    p.data = p.data.to(torch.bfloat16)
+            for name, child in m.named_children():
+                if isinstance(child, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)):
+                    setattr(m, name, _BiasAfter(child))
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+        return self.net(x.to(torch.bfloat16), time).to(x.dtype)
+
+
+_BF16_TWINS: "weakref.WeakKeyDictionary[nn.Module, Bf16Unet]" = weakref.WeakKeyDictionary()
+
+
+def bf16_model(model: TemporalUnet) -> Bf16Unet:
+    """The bfloat16 twin of `model`, made once per model, so that planners
+    sharing a model share its twin (and stay batchable)."""
+    if model not in _BF16_TWINS:
+        _BF16_TWINS[model] = Bf16Unet(model).eval()
+    return _BF16_TWINS[model]
 
 
 # ------------------------------------------------------------- conversion

@@ -74,3 +74,13 @@ def build_shared_libraries(sources: Sequence[Path],
         raise RuntimeError("\n".join(errors))
     return outs
 
+
+
+def load_kernels() -> None:
+    """Build the port's kernels (one nvcc per missing library, all started
+    together) and load them, so that no later call builds one."""
+    from mmd_torch.ops import collision_guide, sdf_kernel
+
+    build_shared_libraries([sdf_kernel.SOURCE, collision_guide.SOURCE])
+    sdf_kernel.load_library()
+    collision_guide.load_library()

@@ -1,20 +1,28 @@
-"""Team programs: prioritized planning (PP) of a whole team on the device.
+"""Team programs: a whole team's plans on the device, agent after agent.
 
-Twin of `plan_prioritized_scan` of `mmd_tpu/parallel/team.py` (reference:
-prioritized_planning.py:46-201); its `plan_prioritized_device` is
-`PrioritizedPlanning._plan_scan`, run once `_scan_eligible` holds.
-JAX runs the pass as one `lax.scan`; here it is a Python loop over the
-agents whose carry, the chosen (A, H, 2) positions and the planned mask,
-stays on the device. Agent i plans under hard per-waypoint keep-out balls
-around the agents before it, then takes the free candidate with the fewest
-team conflicts. No step reads the device: the chosen row is gathered with
-a device index, and the host reads the results once, after the last agent.
+Twin of `mmd_tpu/parallel/team.py`. JAX runs each pass as one `lax.scan`
+or `vmap`; here each is a Python loop over the agents whose carry stays on
+the device:
+- `plan_prioritized_scan`: prioritized planning (PP, reference
+  prioritized_planning.py:46-201; JAX's `plan_prioritized_device` is
+  `PrioritizedPlanning._plan_scan`). Agent i plans under hard per-waypoint
+  keep-out balls around the chosen paths of the agents before it, then
+  takes the free candidate with the fewest team conflicts.
+- `plan_fresh_team`: the CBS/XCBS root, every agent's unconstrained plan
+  and the root's conflict summary (team.py:26-45, 247).
+- `plan_sequential_root_soft`: the ECBS root (team.py:49-112, 264). Agent
+  i plans under soft balls around the chosen (least-cost) paths of the
+  agents before it; an agent whose batch has no free trajectory plans
+  again with every ball masked.
+The chosen row is gathered with a device index. Only the ECBS root reads
+the device inside its loop: one flag per agent, whether its batch has a
+free trajectory, through the caller's `read`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -76,15 +84,17 @@ class AgentClock:
 
 @dataclasses.dataclass(frozen=True)
 class PrioritizedTeam:
-    """What every agent's step of the PP pass shares: planner 0's program
+    """What every agent's step of a team pass shares: planner 0's program
     (the planners are batchable), the team's hard conditions, and the
-    keep-out balls' radius and hard weight (team.py:151-153, 225-226)."""
+    balls' radius and weights, hard for PP and soft for ECBS
+    (team.py:151-153, 225-226)."""
 
     p0: MPD
     hard_team: HardConds
     base_cset: ConstraintSet
     cons_radius: torch.Tensor  # ()
     hard_weight: torch.Tensor  # ()
+    soft_weight: torch.Tensor  # ()
     tmask: torch.Tensor        # (A, H): 0 at waypoint 0, else 1
     margin: float
 
@@ -100,6 +110,8 @@ class PrioritizedTeam:
             base_cset=empty_constraint_set(1, 1, device=p0.device),
             cons_radius=torch.full((), default_params.vertex_constraint_radius, **kw),
             hard_weight=torch.full((), default_params.weight_grad_cost_constraints, **kw),
+            soft_weight=torch.full((), default_params.weight_grad_cost_soft_constraints,
+                                   **kw),
             tmask=tmask, margin=float(margin))
 
     def initial_carry(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,16 +124,27 @@ class PrioritizedTeam:
                            torch.full((A,), 1e6, **kw)], dim=-1)
         return far[:, None, :].expand(A, H, 2).clone(), torch.zeros((A,), **kw)
 
+    def plan_under(self, i: int, noise: SamplerNoise,
+                   balls: Optional[SoftPathConstraints] = None) -> PlanResult:
+        """Agent i's fresh plan with no constraint but `balls`."""
+        gd = GuideData(scene=self.p0.scene, normalizer=self.p0.dataset.normalizer,
+                       constraints=self.base_cset, soft_paths=balls)
+        hard = HardConds(mask=self.hard_team.mask, values=self.hard_team.values[i])
+        return self.p0._plan_fresh(gd, noise, hard)
+
+    def balls(self, sel_pos: torch.Tensor, mask: torch.Tensor,
+              weight: torch.Tensor) -> SoftPathConstraints:
+        """A ball around each (row, waypoint) of sel_pos (A, H, 2) where
+        mask (A, H) is 1."""
+        return SoftPathConstraints(points=sel_pos, mask=mask, radius=self.cons_radius,
+                                   weight=weight)
+
     def plan_agent(self, sel_pos: torch.Tensor, planned: torch.Tensor, i: int,
                    noise: SamplerNoise) -> PlanResult:
         """Agent i's plan under hard keep-out balls around the planned rows
         of the carry (team.py:145-160)."""
-        spc = SoftPathConstraints(points=sel_pos, mask=planned[:, None] * self.tmask,
-                                  radius=self.cons_radius, weight=self.hard_weight)
-        gd = GuideData(scene=self.p0.scene, normalizer=self.p0.dataset.normalizer,
-                       constraints=self.base_cset, soft_paths=spc)
-        hard = HardConds(mask=self.hard_team.mask, values=self.hard_team.values[i])
-        return self.p0._plan_fresh(gd, noise, hard)
+        return self.plan_under(i, noise, self.balls(sel_pos, planned[:, None] * self.tmask,
+                                                    self.hard_weight))
 
     def choose(self, sel_pos: torch.Tensor, planned: torch.Tensor, i: int,
                res: PlanResult):
@@ -138,7 +161,7 @@ class PrioritizedTeam:
                           float("inf"))
         ix = torch.argmin(key)
         sel_pos = sel_pos.clone()
-        sel_pos[i] = res.trajs_final.index_select(0, ix.reshape(1))[0, :, :2]
+        sel_pos[i] = _chosen_row(res, ix)
         planned = planned.clone()
         # fill_, not `planned[i] = 1.0`: setting one element from a Python
         # number copies it from the host, which waits for the card.
@@ -154,9 +177,10 @@ class PrioritizedTeam:
 
 
 class ScanResult(NamedTuple):
-    """The PP pass on the device: trajs (A, B, H, D), free_any (A,), ix (A,),
-    free_mask (A, B), the final selection's conflict summary (count, t, a,
-    b, midpoint), and the clock of the agents' steps."""
+    """A team pass on the device: trajs (A, B, H, D), free_any (A,), the
+    chosen index ix (A,), free_mask (A, B), the final selection's conflict
+    summary (count, t, a, b, midpoint), and the clock of the agents'
+    steps."""
 
     trajs: torch.Tensor
     free_any: torch.Tensor
@@ -177,10 +201,69 @@ def plan_prioritized_scan(team: PrioritizedTeam,
         sel_pos, planned, res, ix = team.step(sel_pos, planned, i, noise)
         outs.append((res, ix))
         clock.mark()
+    return _team_result(outs, sel_pos, team.margin, clock)
+
+
+def _team_result(outs: Sequence[Tuple[PlanResult, torch.Tensor]], sel_pos: torch.Tensor,
+                 margin: float, clock: AgentClock) -> ScanResult:
     return ScanResult(
         trajs=torch.stack([r.trajs_final for r, _ in outs]),
         free_any=torch.stack([r.free_mask.any() for r, _ in outs]),
         ix=torch.stack([ix for _, ix in outs]),
         free_mask=torch.stack([r.free_mask for r, _ in outs]),
-        summary=team_conflict_summary(sel_pos, team.margin),
+        summary=team_conflict_summary(sel_pos, margin),
         clock=clock)
+
+
+def _chosen_row(res: PlanResult, ix: torch.Tensor) -> torch.Tensor:
+    """(H, 2) positions of candidate ix, gathered with a device index."""
+    return res.trajs_final.index_select(0, ix.reshape(1))[0, :, :2]
+
+
+def plan_fresh_team(team: PrioritizedTeam, noise_l: Sequence[SamplerNoise]) -> ScanResult:
+    """The CBS/XCBS root: every agent's unconstrained fresh plan, its
+    least-cost free candidate, and the root's conflict summary
+    (`plan_fresh_team` with `_fresh_team_with_summary`, team.py:26-45,
+    247-261), without a host sync."""
+    clock = AgentClock(team.tmask.device)
+    clock.mark()
+    outs = []
+    for i, noise in enumerate(noise_l):
+        res = team.plan_under(i, noise)
+        outs.append((res, res.idx_best))
+        clock.mark()
+    pos = torch.stack([_chosen_row(r, ix) for r, ix in outs])
+    return _team_result(outs, pos, team.margin, clock)
+
+
+def plan_sequential_root_soft(team: PrioritizedTeam, noise_l: Sequence[SamplerNoise],
+                              fallback_l: Sequence[SamplerNoise],
+                              read: Callable[[torch.Tensor], bool]) -> ScanResult:
+    """The ECBS root (`plan_sequential_root_soft` with
+    `_sequential_root_with_summary`, team.py:49-112, 264-280): agent i
+    plans with noise_l[i] under soft balls around the chosen paths of the
+    agents before it (masked `planned[:, None] * tmask`, waypoint 0
+    excluded) and takes its least-cost free candidate. If `read`, given the
+    device flag "the batch has a free trajectory", returns False, the agent
+    plans again with fallback_l[i] and every ball masked (JAX's `lax.cond`,
+    team.py:97-101). `read` is the loop's only host read."""
+    A, H = team.tmask.shape
+    kw = dict(dtype=torch.float32, device=team.tmask.device)
+    sel_pos, planned = torch.zeros((A, H, 2), **kw), torch.zeros((A,), **kw)
+    none = torch.zeros((A, H), **kw)
+    clock = AgentClock(team.tmask.device)
+    clock.mark()
+    outs = []
+    for i in range(A):
+        res = team.plan_under(i, noise_l[i], team.balls(
+            sel_pos, planned[:, None] * team.tmask, team.soft_weight))
+        if not read(res.free_mask.any()):
+            res = team.plan_under(i, fallback_l[i],
+                                  team.balls(sel_pos, none, team.soft_weight))
+        sel_pos = sel_pos.clone()
+        sel_pos[i] = _chosen_row(res, res.idx_best)
+        planned = planned.clone()
+        planned[i].fill_(1.0)  # not `= 1.0`, which waits for the card
+        outs.append((res, res.idx_best))
+        clock.mark()
+    return _team_result(outs, sel_pos, team.margin, clock)

@@ -1,39 +1,63 @@
-"""The constraint-tree node and the helpers that CBS and PP share.
+"""Conflict-Based Search, its constraint-tree node, and the helpers that
+CBS and PP share.
 
-Twin of the shared part of `mmd_tpu/planners/multi_agent/cbs.py`
-(reference: mmd/planners/multi_agent/cbs.py): `SearchState` (the CT node,
-cbs.py:63-106) with lazy row updates, and `CBSBase`, which holds the team's
-fields, validates its starts and goals, summarizes a node's conflicts on the
-device and builds the per-waypoint constraints from other agents' paths.
-`PrioritizedPlanning` subclasses it; so will CBS, whose search is not
-ported yet. A team's paths are one (n_agents, B, H, D) tensor on the
-device, and a node reads to the host only through `CBSBase._fetch`.
+Twin of `mmd_tpu/planners/multi_agent/cbs.py` (reference:
+mmd/planners/multi_agent/cbs.py) without its speculative programs (the
+greedy CT descent, the frontier and the repair rounds): `SearchState` (the
+CT node, cbs.py:63-106) with lazy row updates; `CBSBase`, which holds the
+team's fields, validates its starts and goals, summarizes a node's
+conflicts on the device and builds the per-waypoint constraints from other
+agents' paths (`PrioritizedPlanning` subclasses it too); and `CBS`, the
+search of CBS, ECBS, XCBS and XECBS in the reference's order. A team's
+paths are one (n_agents, B, H, D) tensor on the device, and the search
+reads the device only through `to_host`, mostly by `CBSBase._fetch`.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from mmd_torch.common.conflicts import PointConflict
+from mmd_torch.common.conflict_conversion import convert_conflicts_to_constraints
+from mmd_torch.common.conflicts import EdgeConflict, PointConflict, VertexConflict
 from mmd_torch.common.constraints import MultiPointConstraint
+from mmd_torch.common.experiences import PathBatchExperience
 from mmd_torch.common.multi_agent_utils import (
     global_pad_paths,
     is_multi_agent_start_goal_states_valid,
 )
 from mmd_torch.config import params as default_params
-from mmd_torch.models.diffusion import SamplerNoise
+from mmd_torch.costs.constraints import pack_constraint_set
+from mmd_torch.costs.guide import GuideData
+from mmd_torch.experiments.status import TrialSuccessStatus
+from mmd_torch.models.diffusion import HardConds, SamplerNoise
+from mmd_torch.parallel.team import (
+    PrioritizedTeam,
+    _batchable,
+    plan_fresh_team,
+    plan_sequential_root_soft,
+    stack_hard_conds,
+)
 from mmd_torch.planners.multi_agent.conflict_detection import (
+    densify_positions,
     find_conflicts,
     pad_team_positions,
+    select_candidate_and_conflicts,
     team_conflict_summary,
 )
+from mmd_torch.planners.multi_agent.fused import (
+    expand_children,
+    expand_fresh,
+    expand_local,
+)
+from mmd_torch.planners.single_agent.mpd import MPD
+from mmd_torch.utils.transfer import to_device
 
 
 def _index(ix, device) -> torch.Tensor:
-    return ix if isinstance(ix, torch.Tensor) else torch.as_tensor(ix, device=device)
+    return ix if isinstance(ix, torch.Tensor) else to_device(ix, device, torch.int64)
 
 
 def _best_paths_full(paths_all: torch.Tensor, ix) -> torch.Tensor:
@@ -155,12 +179,28 @@ class CBSBase:
                 if gen is not None else default_params.seed)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
-        # Host seconds spent waiting on the device and the number of such
-        # waits, over the last plan() (cbs.py:261).
-        self.timing: dict = {"device_s": 0.0, "device_calls": 0}
+        self._reset_timing()
+
+    def _reset_timing(self):
+        """`timing` of a new plan(): the host's seconds waiting on the
+        device and the number of such waits (cbs.py:261), by phase in
+        `device_<phase>_s`; the plans it ran, fresh and local, and their
+        UNet forwards (the twin of JAX's `baked.UNET_EVALS`)."""
+        self.timing: dict = {"device_s": 0.0, "device_calls": 0, "plans_fresh": 0,
+                             "plans_local": 0, "unet_forwards": 0}
+
+    def _count_plans(self, local: bool, n: int = 1):
+        """Count n plans of one kind, and their UNet forwards (none for a
+        planner without a diffusion config)."""
+        steps = default_params.n_local_inference_denoising_steps if local else None
+        self.timing["plans_local" if local else "plans_fresh"] += n
+        cfg = getattr(self.low_level_planner_l[0], "cfg", None)
+        if cfg is not None:
+            self.timing["unet_forwards"] += n * len(cfg.step_indices(steps))
 
     def _fetch(self, tree, phase: str):
-        """`to_host` with the wait counted in `timing`, by phase."""
+        """`to_host` with the wait counted in `timing`, by phase: its
+        seconds in `device_<phase>_s`, its reads in `device_<phase>_calls`."""
         t0 = time.perf_counter()
         out = to_host(tree)
         dt = time.perf_counter() - t0
@@ -168,12 +208,20 @@ class CBSBase:
         self.timing["device_calls"] += 1
         key = f"device_{phase}_s"
         self.timing[key] = self.timing.get(key, 0.0) + dt
+        key = f"device_{phase}_calls"
+        self.timing[key] = self.timing.get(key, 0) + 1
         return out
 
     def _team_noise(self) -> List[SamplerNoise]:
         """One fresh sampling loop's draws per agent, from the team generator."""
         return [SamplerNoise.draw(p.cfg, self._generator, self.device)
                 for p in self.low_level_planner_l]
+
+    def _draw(self, local: bool) -> SamplerNoise:
+        """One loop's draws from the team generator, fresh or local."""
+        steps = default_params.n_local_inference_denoising_steps if local else None
+        return SamplerNoise.draw(self.low_level_planner_l[0].cfg, self._generator,
+                                 self.device, steps)
 
     def _pad_pos(self, pos: np.ndarray, agent_id: int, max_t: int) -> np.ndarray:
         """Agent `agent_id`'s positions (..., T, 2) on the team's timeline of
@@ -244,3 +292,374 @@ class CBSBase:
             return []
         return [MultiPointConstraint(q_l=q_l, t_range_l=t_range_l, radius_l=radius_l,
                                      is_soft=True)]
+
+
+def _plannable(constraint_l) -> List[MultiPointConstraint]:
+    """Typed vertex and edge constraints in the keep-out-ball form the
+    diffusion planner takes (cbs.py:67-71)."""
+    return [c if isinstance(c, MultiPointConstraint) else c.as_multipoint()
+            for c in constraint_l]
+
+
+class CBS(CBSBase):
+    """Conflict-Based Search over guided-diffusion planners (reference:
+    mmd/planners/multi_agent/cbs.py), in the reference's host-driven order:
+    pop the open node with the fewest conflicts, expand its first
+    conflict into one child per agent, each replanned on the device.
+    The four variants (inference_multi_agent.py:112-113):
+    CBS (is_ecbs=False, is_xcbs=False), ECBS (is_ecbs: soft balls around
+    the other agents' paths), XCBS (is_xcbs: a child replans locally from
+    its parent's batch), XECBS (both).
+
+    A root and an expansion each read the device once (`_fetch`, phase
+    "root", "children", "expand" or "summary"); the ECBS root also reads one
+    flag per agent. `final` is the node `plan()` returned.
+    """
+
+    def __init__(self, low_level_planner_l: Sequence, start_l: Sequence,
+                 goal_l: Sequence, start_time_l: Optional[List[int]] = None,
+                 is_xcbs: bool = False, is_ecbs: bool = True,
+                 reference_robot=None, reference_task=None,
+                 validate_start_goal: bool = True, verbose: bool = False,
+                 choose_path_strategy: Optional[str] = None,
+                 conflict_types: Tuple = (PointConflict,)):
+        super().__init__(low_level_planner_l, start_l, goal_l, start_time_l=start_time_l,
+                         reference_robot=reference_robot, reference_task=reference_task,
+                         validate_start_goal=validate_start_goal)
+        self.is_xcbs = is_xcbs
+        self.is_ecbs = is_ecbs
+        self.verbose = verbose
+        # Conflict types to detect (cbs.py:118-130); with EdgeConflict the
+        # paths are densified x2 before detection (cbs.py:185-245).
+        self.conflict_types = tuple(conflict_types)
+        self._densify = 2 if EdgeConflict in self.conflict_types else 1
+        # 'least_collisions' or 'least_cost' (mmd_params.py:53, cbs.py:436-462)
+        self.choose_path_strategy = (choose_path_strategy or
+                                     default_params.low_level_choose_path_from_batch_strategy)
+        if self.choose_path_strategy not in ("least_collisions", "least_cost"):
+            raise ValueError(f"choose_path_strategy {self.choose_path_strategy!r}")
+        self.open_l: List[SearchState] = []
+        self.final: Optional[SearchState] = None
+
+    def _log(self, *a):
+        if self.verbose:
+            print(*a)
+
+    # ------------------------------------------------------------ helpers
+    def _summarize(self, state: SearchState):
+        """The node's conflicts from one fetch, densified with EdgeConflict."""
+        if self._densify == 1:
+            return super()._summarize(state)
+        pos = self._team_pos(state)
+        count, t, a, b, mid, pos = self._fetch(
+            (*team_conflict_summary(densify_positions(pos, self._densify), self.margin), pos),
+            phase="summary")
+        state.n_conflicts = int(count)
+        state.first_conflict = (self._mk_conflict_dense(int(t), int(a), int(b), mid, pos)
+                                if count else None)
+
+    def _mk_conflict_dense(self, t_dense: int, a: int, b: int, mid: np.ndarray,
+                           pos: np.ndarray):
+        """The first conflict of a densified hit (cbs.py:195-245): a
+        VertexConflict at an integral time, an EdgeConflict at a fractional
+        one, where requested; else a PointConflict."""
+        t_from, t_to = t_dense // self._densify, -(-t_dense // self._densify)
+        if t_from == t_to and VertexConflict in self.conflict_types:
+            return VertexConflict(agent_ids=[a, b],
+                                  q_map={a: pos[a, t_from], b: pos[b, t_from]}, t=t_from)
+        if t_from != t_to and EdgeConflict in self.conflict_types:
+            return EdgeConflict(agent_ids=[a, b],
+                                q_from_map={a: pos[a, t_from], b: pos[b, t_from]},
+                                q_to_map={a: pos[a, t_to], b: pos[b, t_to]},
+                                t_from=t_from, t_to=t_to)
+        return PointConflict(agent_ids=[a, b], p_l=[mid, mid], q_l=[mid, mid],
+                             t_from=t_from, t_to=t_to)
+
+    def get_conflicts(self, state: SearchState) -> List:
+        best = global_pad_paths(state.best_paths(), self.start_time_l)
+        return find_conflicts(best, self.margin, conflict_types=self.conflict_types)
+
+    def _set_conflicts(self, state: SearchState, count, t, a, b, mid):
+        state.n_conflicts = int(count)
+        state.first_conflict = self._mk_conflict(t, a, b, mid) if count else None
+
+    # --------------------------------------------------------------- plan
+    def plan(self, runtime_limit: float = default_params.runtime_limit,
+             anytime: bool = True):
+        """(best_path_l, n_ct_expansions, TrialSuccessStatus, n_conflicts)
+        (reference: cbs.py:302-389; JAX cbs.py:429-644 without the
+        speculative programs).
+
+        The runtime limit counts wall seconds from the start of the search;
+        the caller builds the kernels before it (`ops.build.load_kernels`).
+        The deadline is checked before each pop, so a 0-conflict node made
+        past it is not a success. With `anytime`, a search that ran out of
+        time returns the node with the fewest conflicts seen, popped or
+        open; its status stays FAIL_RUNTIME_LIMIT."""
+        self._reset_timing()
+        self.open_l, self.final = [], None
+        t_start = time.perf_counter()
+
+        def over_limit() -> bool:
+            return time.perf_counter() - t_start > runtime_limit
+
+        status, root = self._plan_root(over_limit)
+        state = root
+        num_expansions = 0
+        if status == TrialSuccessStatus.UNKNOWN:
+            if not root.summarized or self._densify > 1:
+                self._summarize(root)
+            self.open_l.append(root)
+
+        best_seen = state if state.has_paths else None
+        while status == TrialSuccessStatus.UNKNOWN:
+            if over_limit():
+                status = TrialSuccessStatus.FAIL_RUNTIME_LIMIT
+                break
+            if not self.open_l:
+                status = TrialSuccessStatus.FAIL_NO_SOLUTION
+                break
+            # Fewest conflicts first (cbs.py:365); the sort is stable.
+            self.open_l.sort(key=lambda s: s.n_conflicts)
+            state = self.open_l.pop(0)
+            if best_seen is None or state.n_conflicts < best_seen.n_conflicts:
+                best_seen = state
+            if state.n_conflicts == 0:
+                status = TrialSuccessStatus.SUCCESS
+                break
+            self.expand(state)
+            num_expansions += 1
+
+        if anytime and status == TrialSuccessStatus.FAIL_RUNTIME_LIMIT:
+            cands = ([best_seen] if best_seen is not None else []) + [
+                n for n in self.open_l if n.has_paths]
+            if cands:
+                state = min(cands, key=lambda s: s.n_conflicts)
+        self.timing["plan_s"] = time.perf_counter() - t_start
+        if not state.has_paths:
+            return [], num_expansions, status, 0
+        self.final = state
+        best_path_l = global_pad_paths(state.best_paths(), self.start_time_l)
+        return best_path_l, num_expansions, status, state.n_conflicts
+
+    def _plan_root(self, over_limit):
+        """(status, root): UNKNOWN with the root node, or a failure. A team
+        of batchable planners plans its root in one device pass: every
+        agent fresh (CBS, XCBS), or the ECBS sequential soft pass on a
+        uniform clock; the rest plan agent by agent (cbs.py:499-584)."""
+        root = SearchState(None, [])
+        planners = self.low_level_planner_l
+        if _batchable(planners) and (not self.is_ecbs or self.uniform_time):
+            team = PrioritizedTeam.of(planners, self.margin)
+            self._count_plans(False, self.num_agents)
+            if not self.is_ecbs:
+                out = plan_fresh_team(team, self._team_noise())
+            else:
+                def read(free_any: torch.Tensor) -> bool:
+                    free = bool(self._fetch(free_any, phase="root"))
+                    if not free:
+                        self._log("Soft-constrained root starved; replanning unconstrained.")
+                        self._count_plans(False)
+                    return free
+
+                out = plan_sequential_root_soft(team, self._team_noise(), self._team_noise(),
+                                                read)
+            free_any, ix, summary = self._fetch((out.free_any, out.ix, out.summary),
+                                                phase="root")
+            self.timing["root_agent_s"] = out.clock.seconds()
+            if not free_any.all():
+                return TrialSuccessStatus.FAIL_NO_SOLUTION, root
+            root = SearchState(out.trajs, [int(i) for i in ix])
+            if self.uniform_time and self._densify == 1:
+                self._set_conflicts(root, *summary)
+                root.summarized = True
+            return TrialSuccessStatus.UNKNOWN, root
+
+        path_tiles: List[torch.Tensor] = []
+        for i, planner in enumerate(planners):
+            partial = SearchState(torch.stack(path_tiles) if path_tiles else None,
+                                  root.ix_best[: len(path_tiles)])
+            soft_l = (self.create_soft_constraints_from_other_agents_paths(
+                partial, i, n_agents_in_state=len(path_tiles))
+                if self.is_ecbs and path_tiles else [])
+            res = planner._run(soft_l)
+            self._count_plans(False)
+            free, ix = self._fetch((res.free_mask.any(), res.idx_best), phase="root")
+            if not free and soft_l:
+                # The soft balls starved the batch: replan this agent
+                # without them (cbs.py:560-570).
+                self._log(f"Soft-constrained root starved; replanning agent {i}.")
+                res = planner._run([])
+                self._count_plans(False)
+                free, ix = self._fetch((res.free_mask.any(), res.idx_best), phase="root")
+            if not free:
+                self._log("Failed to find valid paths in root CT node.")
+                return TrialSuccessStatus.FAIL_NO_SOLUTION, root
+            path_tiles.append(res.trajs_final)
+            root.ix_best.append(int(ix))
+            if over_limit():  # a part of the team is no node
+                return TrialSuccessStatus.FAIL_RUNTIME_LIMIT, root
+        root.paths_all = torch.stack(path_tiles)
+        return TrialSuccessStatus.UNKNOWN, root
+
+    # ------------------------------------------------------------- expand
+    def expand(self, state: SearchState):
+        """One child per agent of the node's first conflict, each with the
+        conflict's constraint added and its agent replanned (reference:
+        cbs.py:390-466). All children in one pass where the planners allow
+        it, else one child at a time."""
+        constraints = convert_conflicts_to_constraints(state.first_conflict)
+        H_all = state.paths_all.shape[2]
+        if self._densify == 1 and self._expand_children_batched(state, constraints, H_all):
+            return
+        for agent_id, constraint in constraints.items():
+            self._expand_child(state, agent_id, constraint, H_all)
+
+    def _child(self, state: SearchState, agent_id: int, constraint, H_all: int) -> SearchState:
+        child = state.get_copy()
+        child.add_constraint(agent_id, constraint.shifted(-self.start_time_l[agent_id], 0,
+                                                          H_all - 1))
+        return child
+
+    def _expand_children_batched(self, state: SearchState, constraints: dict,
+                                 H_all: int) -> bool:
+        """Every child of the conflict in one pass on planner 0's program
+        (JAX cbs.py:1041-1130): uniform start times, the least-collisions
+        choice, batchable planners. An ECBS child whose batch the soft balls
+        starved replans with its hard CT constraints only. Returns whether
+        it handled the expansion."""
+        if not (self.uniform_time and constraints
+                and self.choose_path_strategy == "least_collisions"):
+            return False
+        agent_ids = list(constraints)
+        planners = [self.low_level_planner_l[a] for a in agent_ids]
+        if not _batchable(planners):
+            return False
+        p0 = planners[0]
+        children = [self._child(state, a, constraints[a], H_all) for a in agent_ids]
+        csets = []
+        for child, a in zip(children, agent_ids):
+            hard_l = _plannable(child.constraints[a])
+            csets.append(pack_constraint_set(hard_l, len(hard_l),
+                                             max(len(c.q_l) for c in hard_l),
+                                             device=self.device))
+        hard_c = stack_hard_conds([p.hard_conds for p in planners])
+        paths_all = state.paths_all
+        ix_best = to_device(state.ix_best, self.device, torch.int64)
+        kw = dict(dtype=torch.float32, device=self.device)
+        soft_radius = torch.full((), default_params.vertex_constraint_radius, **kw)
+        soft_weight = torch.full((), default_params.weight_grad_cost_soft_constraints, **kw)
+
+        def run(use_soft: bool, which: List[int]):
+            self._count_plans(self.is_xcbs, len(which))
+            # Rows by int index and a stack: a list index would copy it
+            # from the host and wait for the card.
+            values = torch.stack([hard_c.values[c] for c in which])
+            return expand_children(
+                p0, HardConds(mask=hard_c.mask, values=values),
+                [csets[c] for c in which], [self._draw(self.is_xcbs) for _ in which],
+                paths_all, ix_best, [agent_ids[c] for c in which], self.margin,
+                soft_radius, soft_weight, use_soft=use_soft, local=self.is_xcbs)
+
+        trajs, scalars = run(self.is_ecbs, list(range(len(agent_ids))))
+        any_free, ix, count, t, a, b, mid = (np.array(x) for x in
+                                             self._fetch(scalars, phase="children"))
+        starved = [c for c in range(len(agent_ids)) if not any_free[c]]
+        if self.is_ecbs and starved:
+            trajs2, scalars2 = run(False, starved)
+            for k, (f, i_, n_, t_, a_, b_, m_) in enumerate(zip(
+                    *self._fetch(scalars2, phase="children"))):
+                c = starved[k]
+                any_free[c], ix[c], count[c] = f, i_, n_
+                t[c], a[c], b[c], mid[c] = t_, a_, b_, m_
+                trajs[c] = trajs2[k]
+        for c, agent_id in enumerate(agent_ids):
+            if not any_free[c]:
+                self._log("Failed to find valid path in CT node.")
+                continue
+            child = children[c]
+            child.add_path_update(agent_id, (trajs, (c,)))
+            child.ix_best[agent_id] = int(ix[c])
+            self._set_conflicts(child, count[c], t[c], a[c], b[c], mid[c])
+            self.open_l.append(child)
+        return True
+
+    def _expand_child(self, state: SearchState, agent_id: int, constraint, H_all: int):
+        """One child, replanned alone (JAX cbs.py:1213-1390 without the
+        ensemble branch): on the device with its choice and summary where
+        the clock is uniform and the choice is least-collisions, else
+        chosen against the team's padded paths, by least collisions or
+        least cost."""
+        child = self._child(state, agent_id, constraint, H_all)
+        planner = self.low_level_planner_l[agent_id]
+        hard_l = _plannable(child.constraints[agent_id])
+        cons_l = hard_l + (self.create_soft_constraints_from_other_agents_paths(
+            child, agent_id) if self.is_ecbs else [])
+        if (self.uniform_time and self._densify == 1 and isinstance(planner, MPD)
+                and self.choose_path_strategy == "least_collisions"):
+            ix_best = to_device(child.ix_best, self.device, torch.int64)
+
+            def run_once(cons):
+                cset, spc = planner._pack(cons)
+                gd = GuideData(scene=planner.scene, normalizer=planner.dataset.normalizer,
+                               constraints=cset, soft_paths=spc)
+                self._count_plans(self.is_xcbs)
+                expand = expand_local if self.is_xcbs else expand_fresh
+                return expand(planner, gd, planner.draw_noise(local=self.is_xcbs),
+                              child.paths_all, ix_best, agent_id, self.margin)
+
+            new_paths, scalars = run_once(cons_l)
+            any_free, ix, *summary = self._fetch(scalars, phase="expand")
+            if not any_free and self.is_ecbs:
+                new_paths, scalars = run_once(hard_l)
+                any_free, ix, *summary = self._fetch(scalars, phase="expand")
+            if not any_free:
+                self._log("Failed to find valid path in CT node.")
+                return
+            child.paths_all = new_paths
+            child.ix_best[agent_id] = int(ix)
+            self._set_conflicts(child, *summary)
+            self.open_l.append(child)
+            return
+
+        experience = (PathBatchExperience(child.paths_all[agent_id]) if self.is_xcbs
+                      else None)
+        res = planner._run(cons_l, experience)
+        self._count_plans(self.is_xcbs)
+        if self.is_ecbs and not self._fetch(res.free_mask.any(), phase="expand"):
+            res = planner._run(hard_l, experience)
+            self._count_plans(self.is_xcbs)
+        others_pos = self._team_pos(child)
+        T = others_pos.shape[1]
+        B = res.trajs_final.shape[0]
+        starts = torch.full((B,), self.start_time_l[agent_id], dtype=torch.int64,
+                            device=self.device)
+        cand_pos = pad_team_positions(res.trajs_final[..., :2], starts, T)
+        if self.choose_path_strategy == "least_cost":
+            # Keep the planner's least-cost choice, then summarize the team
+            # with it (cbs.py:436-441).
+            ix, any_free = self._fetch((res.idx_best, res.free_mask.any()), phase="expand")
+            if not any_free:
+                self._log("Failed to find valid path in CT node.")
+                return
+            chosen = others_pos.clone()
+            chosen[agent_id] = cand_pos[int(ix)]
+            summary = self._fetch(team_conflict_summary(chosen, self.margin), phase="expand")
+        else:
+            ix, *summary, any_free = self._fetch(
+                (*select_candidate_and_conflicts(cand_pos, res.free_mask, agent_id,
+                                                 others_pos, self.margin),
+                 res.free_mask.any()), phase="expand")
+            if not any_free:
+                self._log("Failed to find valid path in CT node.")
+                return
+        new_paths = child.paths_all.clone()
+        new_paths[agent_id] = res.trajs_final
+        child.paths_all = new_paths
+        child.ix_best[agent_id] = int(ix)
+        if self._densify > 1:
+            # The choice ran undensified; the node's record must not.
+            self._summarize(child)
+        else:
+            self._set_conflicts(child, *summary)
+        self.open_l.append(child)

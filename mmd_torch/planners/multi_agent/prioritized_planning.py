@@ -60,6 +60,7 @@ class PrioritizedPlanning(CBSBase):
         """The PP pass on the device, read once; the plan() tuple, or None
         when an agent had no free candidate (the host loop then reruns,
         with its failure semantics, prioritized_planning.py:66-73)."""
+        self._count_plans(False, len(noise_l))
         out = plan_prioritized_scan(PrioritizedTeam.of(self.low_level_planner_l, self.margin),
                                    noise_l)
         free_any, ix, summary, best = self._fetch(
@@ -84,10 +85,11 @@ class PrioritizedPlanning(CBSBase):
         prioritized_planning.py:101-201). `noise_l` replays one sampling
         loop's draws per agent in the device pass; without it they come
         from the team generator. `timing` then holds this plan's host
-        seconds (`plan_s`), its waits on the device, and on the device pass
-        each agent's step seconds (`agent_s`)."""
+        seconds (`plan_s`), its waits on the device, its plans and UNet
+        forwards, and on the device pass each agent's step seconds
+        (`agent_s`)."""
         t_start = time.perf_counter()
-        self.timing = {"device_s": 0.0, "device_calls": 0}
+        self._reset_timing()
         self.final, self.used_scan = None, False
         try:
             if self._scan_eligible():
@@ -118,6 +120,7 @@ class PrioritizedPlanning(CBSBase):
                 c.t_range_l = [(max(0, min(t0, H_max)), min(H_max, t1))
                                for t0, t1 in c.t_range_l]
             res = self.low_level_planner_l[i]._run(constraint_l)
+            self._count_plans(False)
 
             if path_tiles:
                 # Fewest-conflicts choice against the agents planned so far,

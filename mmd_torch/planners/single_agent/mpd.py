@@ -1,11 +1,13 @@
-"""MPD: the guided-diffusion single-agent motion planner, fresh plans.
+"""MPD: the guided-diffusion single-agent motion planner.
 
 Twin of `mmd_tpu/planners/single_agent/mpd.py` (reference:
 mmd/planners/single_agent/mpd.py:58-617). A plan call runs the guided
-DDPM loop, then `_finalize_plan`: unnormalize, classify free/collision,
-score (path length + smoothness), select the best free trajectory and
-savgol-smooth (mpd.py:354-405). The warm-started local path (experience
-reuse) is not ported yet.
+DDPM loop, fresh or, given an experience, warm-started from that batch
+(XCBS local inference), then `_finalize_plan`: unnormalize, classify
+free/collision, score (path length + smoothness), select the best free
+trajectory and savgol-smooth (mpd.py:354-405). With `bf16` the UNet's
+forward alone runs in bfloat16; guide, posterior, finalize and selection
+stay float32.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mmd_torch.common.experiences import PathBatchExperience
 from mmd_torch.config import DiffusionConfig, params as default_params
 from mmd_torch.costs.constraints import (
     ConstraintSet,
@@ -28,7 +31,13 @@ from mmd_torch.costs.constraints import (
 from mmd_torch.costs.guide import GuideConfig, GuideData
 from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.datasets.trajectories import TrajectoryDataset, model_id
-from mmd_torch.models.diffusion import HardConds, SamplerNoise, guided_p_sample_loop
+from mmd_torch.models.diffusion import (
+    HardConds,
+    SamplerNoise,
+    guided_p_sample_loop,
+    run_local_inference,
+)
+from mmd_torch.models.temporal_unet import bf16_model
 from mmd_torch.planners.single_agent.common import PlannerOutput
 from mmd_torch.tasks.task import PlanningTask, classify_trajs
 from mmd_torch.train.checkpoint import load_checkpoint
@@ -83,8 +92,10 @@ class MPD:
                  start_state_pos, goal_state_pos,
                  cfg: Optional[DiffusionConfig] = None,
                  guide_cfg: Optional[GuideConfig] = None,
-                 seed: int = default_params.seed):
-        self.model = model
+                 seed: int = default_params.seed, bf16: bool = False):
+        # bf16: the UNet's bfloat16 twin, shared by every planner of the
+        # model (mpd.py:71, 170).
+        self.model = bf16_model(model) if bf16 else model
         self.schedule = schedule
         self.dataset = dataset
         self.device = dataset.device
@@ -129,13 +140,20 @@ class MPD:
         return pack_constraint_set(rest, len(rest), P, device=self.device), spc
 
     def _run(self, constraints_l: Optional[List] = None,
+             experience: Optional[PathBatchExperience] = None,
              noise: Optional[SamplerNoise] = None) -> PlanResult:
-        """One fresh plan on the device; draws from the planner's own
-        generator unless `noise` is given. Nothing is read to the host."""
+        """One plan on the device (mpd.py:228-242): fresh, or local from
+        the experience's batch; draws from the planner's own generator
+        unless `noise` is given. Nothing is read to the host."""
         cset, spc = self._pack(constraints_l)
         gd = GuideData(scene=self.scene, normalizer=self.dataset.normalizer,
                        constraints=cset, soft_paths=spc)
-        return self._plan_fresh(gd, noise if noise is not None else self.draw_noise(),
+        if experience is None:
+            return self._plan_fresh(gd, noise if noise is not None else self.draw_noise(),
+                                    self.hard_conds)
+        seed_norm = self.dataset.normalizer.normalize(experience.path_b)
+        return self._plan_local(gd, seed_norm,
+                                noise if noise is not None else self.draw_noise(local=True),
                                 self.hard_conds)
 
     def _plan_fresh(self, gd: GuideData, noise: SamplerNoise,
@@ -148,13 +166,31 @@ class MPD:
         return _finalize_plan(chain, gd.normalizer, self.scene, self.robot.radius,
                               self.robot.q_min, self.robot.q_max, self._savgol)
 
-    def draw_noise(self) -> SamplerNoise:
-        return SamplerNoise.draw(self.cfg, self._generator, self.device)
+    def _plan_local(self, gd: GuideData, seed_norm: torch.Tensor, noise: SamplerNoise,
+                    hard: HardConds) -> PlanResult:
+        """The local replan (mpd.py:134-149): the normalized seed batch
+        q-sampled at n_local_inference_noising_steps, then that many steps
+        and the noise-free ones denoised under `gd`."""
+        chain = run_local_inference(
+            self.model, self.schedule, hard, gd, seed_norm, noise, self.cfg, self.guide_cfg,
+            n_noising_steps=default_params.n_local_inference_noising_steps,
+            n_denoising_steps=default_params.n_local_inference_denoising_steps)
+        return _finalize_plan(chain, gd.normalizer, self.scene, self.robot.radius,
+                              self.robot.q_min, self.robot.q_max, self._savgol)
+
+    def draw_noise(self, local: bool = False) -> SamplerNoise:
+        """One loop's draws from the planner's generator: a fresh loop's,
+        or with `local` a local replan's."""
+        return SamplerNoise.draw(self.cfg, self._generator, self.device,
+                                 default_params.n_local_inference_denoising_steps
+                                 if local else None)
 
     def __call__(self, start_state_pos=None, goal_state_pos=None,
                  constraints_l: Optional[List] = None,
+                 experience: Optional[PathBatchExperience] = None,
                  noise: Optional[SamplerNoise] = None) -> PlannerOutput:
-        """Plan once. `noise` replaces the planner's own draws (for replay)."""
+        """Plan once, locally from `experience` if given. `noise` replaces
+        the planner's own draws (for replay)."""
         for given, bound in ((start_state_pos, self.start_state_pos),
                              (goal_state_pos, self.goal_state_pos)):
             if given is not None and not np.allclose(np.asarray(given),
@@ -162,7 +198,7 @@ class MPD:
                 raise ValueError("start/goal differ from the ones bound at "
                                  "construction (mpd.py:318-321)")
         t0 = time.perf_counter()
-        res = self._run(constraints_l, noise)
+        res = self._run(constraints_l, experience, noise)
         free = res.free_mask.cpu().numpy()  # waits for the plan to finish
         t_total = time.perf_counter() - t0
         return self._to_output(res, free, constraints_l, t_total)
@@ -197,18 +233,19 @@ class MPD:
 
 def load_planners(models_root: str, trajectories_root: str, env_name: str,
                   starts: Sequence, goals: Sequence, seeds: Optional[Sequence[int]] = None,
-                  device="cuda") -> List[MPD]:
+                  device="cuda", bf16: bool = False) -> List[MPD]:
     """One MPD per (start, goal) for `env_name`, all sharing one model,
     schedule and dataset loaded from the repository's checkpoint and dataset
     metadata, with the checkpoint's training normalizer (as bench.py:54-66
-    builds its planners; planner i is seeded seeds[i], by default i)."""
+    builds its planners; planner i is seeded seeds[i], by default i), the
+    UNet in bfloat16 if `bf16`."""
     mid = model_id(env_name)
     model, schedule, info = load_checkpoint(os.path.join(models_root, mid), device=device)
     normalizer = LimitsNormalizer.from_limits(info["normalizer_mins"],
                                               info["normalizer_maxs"], device=device)
     dataset = TrajectoryDataset.load(trajectories_root, mid, normalizer, device=device)
     seeds = range(len(starts)) if seeds is None else seeds
-    return [MPD(model, schedule, dataset, s, g, seed=seed)
+    return [MPD(model, schedule, dataset, s, g, seed=seed, bf16=bf16)
             for s, g, seed in zip(starts, goals, seeds)]
 
 

@@ -1,7 +1,8 @@
-"""Where one MPD plan's time, or one PP team plan's, goes on the card.
+"""Where one MPD plan's time, or one team plan's, goes on the card.
 
-    python -m mmd_torch.tools.profile_plan           # one robot
-    python -m mmd_torch.tools.profile_plan --team    # the 10-robot PP team
+    python -m mmd_torch.tools.profile_plan                            # one robot
+    python -m mmd_torch.tools.profile_plan --team                     # 10-robot PP
+    python -m mmd_torch.tools.profile_plan --team --planner XECBS     # 10-robot XECBS
 
 Plans EnvEmptyNoWait2D pair 0 of the 10-agent circle at full width (B=64,
 H=64, 25+1 steps, 14 guided steps x 20 guide iterations) after one warm-up
@@ -29,13 +30,19 @@ for that plan only.
   ("parallel", as chip_smoke.py builds them), in turns, twice each
 
 With --team it plans the 10-robot circle of EnvEmptyNoWait2D with
-`PrioritizedPlanning` at the same width (planners seeded 0-9 sharing one
-model) after one warm-up team plan, and prints the card and one JSON line:
-- plan_s: host seconds of 3 team plans (`timing["plan_s"]`, each ending in
-  the plan's one read of the device), agent_s: each agent's seconds in
-  them (CUDA events between the agents)
+`PrioritizedPlanning` (or, with --planner XECBS, the XECBS search of
+bench.py's main path, its UNet in bfloat16) at the same width (planners
+seeded 0-9 sharing one model) after one warm-up team plan, and prints the
+card and one JSON line:
+- plan_s: host seconds of 3 team plans (`timing["plan_s"]`), agent_s: each
+  agent's seconds in them (CUDA events between the agents; for XECBS, the
+  root's agents), and for XECBS each search's expansions, plans by kind
+  and host waits
 - busy_s, idle_share, idle_share_traced, kernels_per_plan: as above, for
-  one team plan traced with torch.profiler (device activity only)
+  one team plan traced with torch.profiler (device activity only), and
+  traced_plans, its fresh plans and local replans; for XECBS also
+  unet_forward: one forward at B=64 in bfloat16 and in float32 (CUDA-event
+  ms over 50 calls, kernels in one traced call)
 - port_kernels: each port kernel's launches and device time in that plan
 Needs a CUDA card.
 """
@@ -58,7 +65,7 @@ from mmd_torch.costs import guide
 from mmd_torch.costs.guide import GuideData, collision_guide_plain, guide_gradient
 from mmd_torch.ops import collision_guide as cg
 from mmd_torch.ops import sdf_kernel
-from mmd_torch.ops.build import BUILD_DIR, build_shared_libraries
+from mmd_torch.ops.build import BUILD_DIR, build_shared_libraries, load_kernels
 from mmd_torch.ops.sdf_kernel import grid_lookup
 from mmd_torch.planners.single_agent.mpd import _finalize_plan, load_planner
 from mmd_torch.utils.interp import interpolate_traj_via_points
@@ -147,39 +154,74 @@ def _port_kernels(events) -> dict:
     return port
 
 
-def profile_team(card: str) -> dict:
-    """The PP team plan's numbers (module docstring, --team)."""
+def profile_team(card: str, planner: str) -> dict:
+    """A team plan's numbers (module docstring, --team)."""
+    from mmd_torch.planners.multi_agent.cbs import CBS
     from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
     from mmd_torch.planners.single_agent.mpd import load_planners
 
     starts, goals = get_start_goal_pos_circle(TEAM_AGENTS)
+    xecbs = planner == "XECBS"
     planners = load_planners(os.path.join(ROOT, "data_trained_models"),
                              os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
-                             starts, goals, device="cuda")
-    pp = PrioritizedPlanning(planners, starts, goals)
-    pp.plan()  # warm-up
+                             starts, goals, device="cuda", bf16=xecbs)
+
+    def team():
+        if xecbs:
+            return CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
+        return PrioritizedPlanning(planners, starts, goals)
+
+    load_kernels()
+    team().plan()  # warm-up
     plan_s, agent_s, outcome = [], [], []
     for _ in range(3):
-        _, _, status, n_conflicts = pp.plan()
-        plan_s.append(pp.timing["plan_s"])
-        agent_s.append(pp.timing.get("agent_s"))
-        outcome.append([str(status), n_conflicts, pp.used_scan])
-    traced_s, events = _traced(pp.plan, host=False)
+        tp = team()
+        _, n_exp, status, n_conflicts = tp.plan()
+        t = tp.timing
+        plan_s.append(t["plan_s"])
+        agent_s.append(t.get("root_agent_s" if xecbs else "agent_s"))
+        outcome.append([str(status), n_conflicts, n_exp, t["plans_fresh"], t["plans_local"],
+                        {k: v for k, v in t.items() if k.startswith("device_")}]
+                       if xecbs else [str(status), n_conflicts, tp.used_scan])
+    unet = _unet_forwards(planners[0]) if xecbs else None
+    traced = team()
+    traced_s, events = _traced(traced.plan, host=False)
     busy_s = _busy_us(events) * 1e-6 if events else None  # None: not measured
     untraced = statistics.median(plan_s)
     return {"team": {
-        "agents": TEAM_AGENTS, "plan_s": plan_s, "agent_s": agent_s, "outcome": outcome,
+        "planner": planner, "agents": TEAM_AGENTS, "plan_s": plan_s, "agent_s": agent_s,
+        "outcome": outcome, "traced_plans": [traced.timing["plans_fresh"],
+                                             traced.timing["plans_local"]],
         "busy_s": busy_s, "traced_plan_s": traced_s, "kernels_per_plan": len(events),
         "idle_share": None if busy_s is None else 1.0 - busy_s / untraced,
         "idle_share_traced": None if busy_s is None else 1.0 - busy_s / traced_s,
-        "port_kernels": _port_kernels(events)},
+        "port_kernels": _port_kernels(events), "unet_forward": unet},
         "device": torch.cuda.get_device_name(0), "card": card}
+
+
+def _unet_forwards(planner) -> dict:
+    """One UNet forward at the plan's batch, in the planner's bfloat16 and
+    in float32: CUDA-event ms over 50 calls, and kernels in one traced call."""
+    from mmd_torch.train.checkpoint import load_checkpoint
+
+    f32, _, _ = load_checkpoint(os.path.join(ROOT, "data_trained_models",
+                                             "EnvEmptyNoWait2D-RobotPlanarDisk"), "cuda")
+    x = planner.draw_noise().x_T
+    t = torch.full((x.shape[0],), 7, dtype=torch.int64, device=x.device)
+    out = {}
+    with torch.no_grad():
+        for name, model in (("f32", f32), ("bf16", planner.model)):
+            _, events = _traced(lambda: model(x, t), host=False)
+            out[name] = {"ms": _event_ms(lambda: model(x, t), 50), "kernels": len(events)}
+    return out
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--team", action="store_true",
-                        help="profile the 10-robot PP team plan instead of one robot's")
+                        help="profile the 10-robot team plan instead of one robot's")
+    parser.add_argument("--planner", choices=("PP", "XECBS"), default="PP",
+                        help="the team planner of --team")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_plan: needs a CUDA card", file=sys.stderr)
@@ -191,7 +233,7 @@ def main() -> int:
                           timeout=60, check=True).stdout.strip()
     if args.team:
         print(card)
-        print(json.dumps(profile_team(card)))
+        print(json.dumps(profile_team(card, args.planner)))
         return 0
     build_s = build_seconds()
     starts, goals = get_start_goal_pos_circle(10)

@@ -28,6 +28,7 @@ from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.envs.envs import make_env
 from mmd_torch.envs.grid_sdf import grid_sdf_pair
 from mmd_torch.ops import sdf_kernel
+from mmd_torch.ops.build import load_kernels
 from mmd_torch.ops.collision_guide import collision_guide
 from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
 from mmd_torch.parallel.team import PrioritizedTeam, plan_prioritized_scan
@@ -197,3 +198,83 @@ def test_pp_team_pass_launches_per_agent_syncs_nothing_and_replays_exactly(monke
     monkeypatch.setattr(guide_module, "collision_guide", collision_guide_plain)
     plain = plan_prioritized_scan(team, noise)
     assert torch.equal(out.trajs, plain.trajs) and torch.equal(out.ix, plain.ix)
+
+
+def _sync_warnings(caught):
+    return [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def test_xecbs_search_launches_by_plan_kind_syncs_only_to_read_and_replays_exactly(
+        monkeypatch):
+    """A 3-agent XECBS search on the dense circle (B=8, 2 guide iterations a
+    step, the bfloat16 UNet): the collision guide launches once per guide
+    call of each plan (fresh and local, by the search's own count) and the
+    lookup once per plan; every host sync of the search comes from
+    `cbs.to_host`; with the generators restored and both kernels routed to
+    their plain versions the search is equal."""
+    _need_card()
+    import inspect
+
+    from mmd_torch.planners.multi_agent import cbs as cbs_module
+    from mmd_torch.planners.multi_agent.cbs import CBS
+
+    starts, goals = get_start_goal_pos_circle(3, radius=0.3)
+    planners = load_planners(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
+                             starts, goals, device="cuda", bf16=True)
+    for p in planners:
+        p.cfg = dataclasses.replace(p.cfg, n_samples=8, n_guide_steps=2)
+    load_kernels()
+    CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True).plan()  # warm-up
+    kept = [p._generator.get_state() for p in planners]
+    search = CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
+    before = (collision_guide.launches, grid_lookup.launches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            paths, n_exp, status, _ = search.plan()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    lines, first = inspect.getsourcelines(cbs_module.to_host)
+    stray = [f"{w.filename}:{w.lineno}" for w in _sync_warnings(caught)
+             if not (w.filename == cbs_module.__file__
+                     and first <= w.lineno < first + len(lines))]
+    assert not stray, stray
+    cfg, t = planners[0].cfg, search.timing
+    want = (2 * (cfg.n_guided_steps() * t["plans_fresh"]
+                 + cfg.n_guided_steps(3) * t["plans_local"]),
+            t["plans_fresh"] + t["plans_local"])
+    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == want
+    assert t["plans_fresh"] >= 3 and len(paths) == 3
+    final = search.final
+    for p, state in zip(planners, kept):
+        p._generator.set_state(state)
+    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
+    monkeypatch.setattr(guide_module, "collision_guide", collision_guide_plain)
+    replay = CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
+    _, n_exp2, status2, _ = replay.plan()
+    assert (n_exp2, status2) == (n_exp, status)
+    assert replay.final.ix_best == final.ix_best
+    assert torch.equal(replay.final.paths_all, final.paths_all)
+
+
+def test_bf16_forward_on_the_card_is_within_its_tolerance_of_f32():
+    """The bfloat16 UNet on the card (cuDNN's bf16 convolutions) against
+    the float32 forward at B=64: within BF16_TOL of the largest |eps|, the
+    tolerance tests/test_torch_unet.py holds the CPU's bf16 forward to
+    against JAX's (measured there: 0.7%)."""
+    _need_card()
+    from mmd_torch.models.temporal_unet import bf16_model
+    from mmd_torch.train.checkpoint import load_checkpoint
+
+    model, _, _ = load_checkpoint(os.path.join(ROOT, "data_trained_models",
+                                               "EnvEmptyNoWait2D-RobotPlanarDisk"), device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    x = torch.randn((64, 64, 4), generator=g, device="cuda")
+    t = torch.arange(64, device="cuda") % 25
+    with torch.no_grad():
+        got, want = bf16_model(model)(x, t), model(x, t)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max() / want.abs().max()) <= 2e-2

@@ -4,7 +4,8 @@ That machine has torch, numpy and scipy but no jax, flax, yaml or msgpack.
 In a fresh interpreter those (and mmd_tpu) are blocked with a meta-path
 finder that raises; then every module of mmd_torch is imported, and
 chip_smoke.py's CPU-reachable setup runs: the readers, load_checkpoint on
-the CPU, a short plan and a short 2-robot PP team plan. chip_smoke.py itself must exit non-zero and print
+the CPU, a short plan, a short 2-robot PP team plan and a short 2-robot
+XECBS search. chip_smoke.py itself must exit non-zero and print
 no result without a CUDA card, and when it stands alone in a directory.
 """
 import os
@@ -61,6 +62,11 @@ GUARDED = textwrap.dedent("""
     pp = PrioritizedPlanning(team, team_starts, team_goals)
     paths, _, status, _ = pp.plan()
     assert pp.used_scan and len(paths) == 2 and paths[0].shape == (64, 4)
+    from mmd_torch.planners.multi_agent.cbs import CBS
+    xecbs = CBS(team, team_starts, team_goals, is_ecbs=True, is_xcbs=True)
+    paths, _, status, _ = xecbs.plan()
+    assert len(paths) == 2 and paths[0].shape == (64, 4), status
+    assert xecbs.timing["plans_fresh"] >= 2
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
