@@ -59,9 +59,29 @@ this file. Phases, one short line each:
    which must make the same expansions and choose the same indices, and
    agree within REPLAY_TOL. It prints the wall seconds, the expansions,
    the host's waits by phase, the plans by kind and the UNet forwards
-9. one JSON line of kernel numbers (launches: the XECBS search's; launches
-   by path: the four plans of phase 5, the team plan of phase 7 and the
-   search of phase 8), then the contract line {"ok": true, "device": {...}}
+9. tiles: multi-tile planning (`MPDEnsemble`, float32, B=64, H=64, 25+1
+   DDPM steps) on the 2x2 staggered instance EnvTestTwoByTwoRobotPlanarDiskRandom
+   (seed 0, 4 agents, stagger dt = 10; its 2x2 grid's tiles EnvEmptyNoWait2D,
+   EnvConveyor2D and EnvHighways2D twice, on the repository's checkpoints). First
+   the collision-guide kernel on three stacked scenes (EnvConveyor2D,
+   EnvHighways2D, EnvEmptyNoWait2D) at (3, 64, 64, 4) against its plain
+   version, exactly, and timed. Then agent 0's 3-tile skeleton plans fresh
+   and then locally from that batch: each must have a free sample, its seams
+   must hold within SEAM_TOL, and each must launch the collision guide once
+   per guide call for all its tiles (280 fresh, 80 local) and the lookup
+   once per tile. Then the XECBS search through `CBS.plan`: a warm-up under
+   torch's sync debug mode (every sync from `cbs.to_host`), the search,
+   which must succeed with no conflict and launch exactly 280 x fresh + 80
+   x local collision guides and 3 x plans lookups, and its replay with both
+   kernels routed to their plain versions, which must be exact. Then PP
+   on the same team (its status printed, not held; its warm-up's syncs held
+   as XECBS's) with 280 collision guides and 3 lookups per plan
+10. one JSON line of kernel numbers (launches: the multi-tile XECBS
+   search's; launches by path: the four plans of phase 5, the team plan of
+   phase 7, the search of phase 8, and phase 9's two plans, search and PP
+   team; ms, plain and bound: the collision guide at phase 9's stacked
+   (3, 64, 64, 4), with phase 4's (64, 64, 4) beside them), then the
+   contract line {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
 DEADLINE_S seconds does the same. Without a CUDA device it exits non-zero
@@ -79,7 +99,7 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-DEADLINE_S = 300
+DEADLINE_S = 900
 # Card against CPU on the NoWait plan: the map has no obstacles, so the
 # sampler has no SDF cell edges to amplify a rounding difference; only the
 # float32 summation orders of cuDNN and the CPU convolutions differ. Run on
@@ -110,6 +130,14 @@ TEAM_AGENTS = 10  # the 10-robot circle of bench.py
 # forward differs from its float32 one by 0.7% of the largest |eps| on the
 # CPU (tests/test_torch_unet.py). Held at 2% of the largest |eps|.
 BF16_TOL = 2e-2
+TILES_INSTANCE = "EnvTestTwoByTwoRobotPlanarDiskRandom"
+TILES_AGENTS = 4
+STAGGER_DT = 10
+STACKED_ENVS = ("EnvConveyor2D", "EnvHighways2D", "EnvEmptyNoWait2D")
+# A plan's seams after the cross-conditioning, read back from its global
+# trajectories: unnormalizing and normalizing again rounds by a few float32
+# ulps of 1 (~1e-7).
+SEAM_TOL = 1e-6
 
 _phase = ["start"]
 
@@ -451,13 +479,18 @@ def main() -> int:
     phase("cbs")
     cbs = run_cbs_phase(dev, cfg, plain_lookup)
 
+    phase("tiles")
+    tiles = run_tiles_phase(dev, plain_lookup)
+
     phase("report")
 
     def launches(name):
-        return {"launches": cbs["launches"][name],
-                "launches_by_path": {"slice": main_launches[name], "team": team_launches[name],
-                                     "xecbs": cbs["launches"][name]}}
+        by_path = {"slice": main_launches[name], "team": team_launches[name],
+                   "xecbs": cbs["launches"][name]}
+        by_path.update({k: v[name] for k, v in tiles["launches"].items()})
+        return {"launches": tiles["launches"]["tiles_xecbs"][name], "launches_by_path": by_path}
 
+    stacked = tiles["kernel"]
     kernels = [{
         "name": "grid_sdf_lookup", "route": "cuda", "source": "mmd_torch/csrc/grid_sdf.cu",
         "replaces": sdf_kernel.REPLACES, **launches("grid_sdf_lookup"),
@@ -466,15 +499,17 @@ def main() -> int:
     }, {
         "name": "collision_guide", "route": "cuda",
         "source": "mmd_torch/csrc/collision_guide.cu", "replaces": cg.REPLACES,
-        **launches("collision_guide"), "max_abs_err": collision_err,
-        "ms": collision_ms, "plain_ms": collision_plain_ms,
-        "bound_ms": collision_bound_ms, "bound_by": "bytes", "library_ms": None,
+        **launches("collision_guide"), "max_abs_err": max(collision_err, stacked["max_abs_err"]),
+        "ms": stacked["ms"], "plain_ms": stacked["plain_ms"], "bound_ms": stacked["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": list(stacked["shape"]),
+        "single_scene": {"shape": list(GUIDE_SHAPE), "ms": collision_ms,
+                         "plain_ms": collision_plain_ms, "bound_ms": collision_bound_ms},
     }]
     print(json.dumps({"kernels": kernels, "plan_s": plan_s,
                       "team": {"agents": TEAM_AGENTS, "plan_s": timing["plan_s"],
                                "agent_s": timing.get("agent_s"), "status": str(status),
                                "conflicts": n_conflicts},
-                      "xecbs": cbs["summary"],
+                      "xecbs": cbs["summary"], "tiles": tiles["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3)}))
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
@@ -603,6 +638,203 @@ def run_cbs_phase(dev, cfg, plain_lookup):
         "device_calls": timing["device_calls"], "waits_s": waits, "plans_fresh": fresh,
         "plans_local": local, "unet_forwards": timing["unet_forwards"],
         "bf16_err": bf16_err, "warmup_syncs": len(ours), "root_reads": root_reads}}
+
+
+def load_tiles_trial(planner_class: str, device: str):
+    """The multi-tile instance's team (seed 0, TILES_AGENTS agents, stagger
+    STAGGER_DT), built as a trial builds it from the repository's
+    checkpoints."""
+    from mmd_torch.experiments.problems import get_planning_problem
+    from mmd_torch.experiments.trial import ModelRegistry, build_multi_agent_trial
+
+    registry = ModelRegistry(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), device=device)
+    starts, goals, ids, skeletons = get_planning_problem(TILES_INSTANCE, TILES_AGENTS, seed=0)
+    return build_multi_agent_trial(planner_class, starts, goals, ids, skeletons, registry,
+                                   stagger_dt=STAGGER_DT)
+
+
+def stacked_kernel_check(dev, plain_lookup) -> dict:
+    """Phase 9's kernel part: the collision guide on three stacked scenes
+    against its plain version, its T = 1 case against the single-scene
+    call, and its time and byte bound at (3, 64, 64, 4)."""
+    import numpy as np
+    import torch
+
+    from mmd_torch.costs.guide import GuideConfig, collision_guide_plain
+    from mmd_torch.envs.envs import SceneStack, make_env
+    from mmd_torch.ops import sdf_kernel
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.tools.guide_cases import HINGE_CUTOFF, waypoints
+
+    scenes = [make_env(e, dev).scene for e in STACKED_ENVS]
+    stack = SceneStack(tuple(scenes))
+    err = 0.0
+    for cutoff in (GuideConfig().obstacle_cutoff_margin, HINGE_CUTOFF):
+        cfg = GuideConfig(obstacle_cutoff_margin=cutoff)
+        u = torch.from_numpy(np.stack([waypoints(GUIDE_SHAPE, sc, cfg.collision_margin, 31 + m)
+                                       for m, sc in enumerate(scenes)])).to(dev)
+        got = collision_guide(u, stack, cfg)
+        with plain_lookup():
+            want = collision_guide_plain(u, stack, cfg)
+        one = collision_guide(u[:1].contiguous(), SceneStack((scenes[0],)), cfg)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        if not e <= COLLISION_TOL or got[..., 2:].any() or not torch.equal(
+                one[0], collision_guide(u[0].contiguous(), scenes[0], cfg)):
+            raise RuntimeError(f"stacked collision kernel != plain at cutoff {cutoff}: {e}")
+        err = max(err, e)
+    cfg = GuideConfig()
+    ms = cuda_ms(lambda: collision_guide(u, stack, cfg))
+    with plain_lookup():
+        plain_ms = cuda_ms(lambda: collision_guide_plain(u, stack, cfg))
+    # Least bytes: each tile's inner rows read once, its distinct cells
+    # read once from its own table (24 B), every row written once.
+    n_bytes = u.numel() // 4 * 16
+    for m, sc in enumerate(scenes):
+        q = u[m, :, 1:-1, :2].contiguous()
+        i, j = sdf_kernel.cell_index(q, sc.grid.shape, sc.grid.lower, sc.grid.upper)
+        n_bytes += q.numel() // 2 * 16 + int(torch.unique(i * sc.grid.shape[1] + j).numel()) * 24
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"tiles: stacked collision kernel against plain on {'/'.join(STACKED_ENVS)} at "
+          f"{tuple(u.shape)}, default and hinge margins, and T = 1 against one scene: max abs "
+          f"err {err:.3e}; kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} "
+          f"ms ({n_bytes} B)")
+    return {"shape": tuple(u.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
+
+
+def run_tiles_phase(dev, plain_lookup):
+    """Phase 9 (module docstring): multi-tile planning on the 2x2 instance."""
+    import numpy as np
+    import torch
+
+    from mmd_torch.common.experiences import PathBatchExperience
+    from mmd_torch.costs import guide
+    from mmd_torch.costs.guide import collision_guide_plain
+    from mmd_torch.experiments.status import TrialSuccessStatus
+    from mmd_torch.experiments.trial import make_team_planner
+    from mmd_torch.models.ensemble import seam_residual
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+    from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
+
+    kernel = stacked_kernel_check(dev, plain_lookup)
+    trial = load_tiles_trial("XECBS", dev)
+    p0 = trial.planners[0]
+    cfg, n_tiles = p0.cfg, p0.n_tiles
+    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
+    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
+
+    def counts():
+        return collision_guide.launches, grid_lookup.launches
+
+    # Agent 0's skeleton, fresh and then locally from its own batch.
+    t0 = time.perf_counter()
+    p0()  # warm-up
+    print(f"tiles: warm-up plan of agent 0 ({'/'.join(trial.model_ids_l[0])}) "
+          f"{time.perf_counter() - t0:.3f} s")
+    launches, plans, kept = {}, {}, None
+    for kind in ("fresh", "local"):
+        grid_lookup.launches = collision_guide.launches = 0  # plan path starts
+        out = p0(experience=PathBatchExperience(kept) if kind == "local" else None)
+        grew = counts()  # plan path ends
+        seam = float(seam_residual(p0.local_seeds(out.trajs_iters[-1]), p0.cc))
+        want = (per_fresh if kind == "fresh" else per_local, n_tiles)
+        print(f"tiles: {kind} plan of agent 0 in {out.t_total:.3f} s, success "
+              f"{out.success_free_trajs}, fraction_free {out.fraction_free_trajs:.3f}, seam "
+              f"residual {seam:.3e} (tolerance {SEAM_TOL}), launches collision +{grew[0]}, "
+              f"lookup +{grew[1]}")
+        if grew != want:
+            raise RuntimeError(f"{kind} ensemble plan launched {grew}, expected {want}")
+        if out.success_free_trajs != 1 or not seam <= SEAM_TOL:
+            raise RuntimeError(f"{kind} ensemble plan: success {out.success_free_trajs}, "
+                               f"seam residual {seam}")
+        if not torch.isfinite(out.trajs_final).all() or out.trajs_final.shape != (
+                cfg.n_samples, n_tiles * cfg.horizon, cfg.state_dim):
+            raise RuntimeError(f"{kind} ensemble plan not finite of the expected shape")
+        launches[f"tiles_{kind}"] = dict(zip(("collision_guide", "grid_sdf_lookup"), grew))
+        plans[kind] = out.t_total
+        kept = out.trajs_final
+
+    def search(planner_class):
+        return make_team_planner(planner_class, trial.planners, trial.start_l, trial.goal_l,
+                                 start_time_l=trial.start_time_l,
+                                 reference_robot=p0.robot,
+                                 reference_task=trial.team.reference_task)
+
+    def warm_up(team):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = team.plan(runtime_limit=600)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        ours, others = _sync_origins(caught)
+        print(f"tiles: warm-up {type(team).__name__} {time.perf_counter() - t0:.3f} s, "
+              f"{out[2]}; host syncs: {len(ours)} from cbs.to_host "
+              f"({team.timing['device_calls']} reads), {len(others)} elsewhere")
+        if others:
+            raise RuntimeError(f"host syncs outside cbs.to_host: {others[:5]}")
+        return len(ours)
+
+    def measured(team, name):
+        grid_lookup.launches = collision_guide.launches = 0  # path starts
+        paths, n_exp, status, n_conflicts = team.plan(runtime_limit=600)
+        grew = counts()  # path ends
+        t = dict(team.timing)
+        fresh, local = t["plans_fresh"], t["plans_local"]
+        want = (per_fresh * fresh + per_local * local, n_tiles * (fresh + local))
+        waits = {k[len("device_"):-2]: v for k, v in t.items()
+                 if k.startswith("device_") and k.endswith("_s") and k != "device_s"}
+        print(f"tiles: {TILES_AGENTS}-agent {name} on {TILES_INSTANCE} (seed 0, stagger "
+              f"{STAGGER_DT}, f32) in {t['plan_s']:.3f} s, {status}, {n_conflicts} conflicts, "
+              f"{n_exp} expansions; host waits {t['device_calls']} ({t['device_s']:.4f} s) "
+              f"by phase {waits}; plans fresh {fresh}, local {local}; launches collision "
+              f"{grew[0]}, lookup {grew[1]}")
+        if grew != want:
+            raise RuntimeError(f"{name} launched {grew}, expected {want} ({fresh} fresh, "
+                               f"{local} local plans of {n_tiles} tiles)")
+        L = n_tiles * cfg.horizon + max(trial.start_time_l)
+        if not all(p.shape == (L, cfg.state_dim) and np.isfinite(p).all() for p in paths):
+            raise RuntimeError(f"{name} paths not finite of the expected shape")
+        if count_conflicts(paths, team.margin) != n_conflicts:
+            raise RuntimeError(f"{name}: its paths' conflicts differ from its count")
+        launches[f"tiles_{name.lower()}"] = dict(zip(("collision_guide", "grid_sdf_lookup"),
+                                                     grew))
+        return {"plan_s": t["plan_s"], "status": str(status), "conflicts": n_conflicts,
+                "expansions": n_exp, "plans_fresh": fresh, "plans_local": local,
+                "device_s": t["device_s"], "device_calls": t["device_calls"], "waits_s": waits}
+
+    warm_syncs = warm_up(search("XECBS"))
+    kept_states = [p._generator.get_state() for p in trial.planners]
+    xecbs = search("XECBS")
+    summary = {"agents": TILES_AGENTS, "plans_s": plans, "warmup_syncs": warm_syncs,
+               "xecbs": measured(xecbs, "XECBS")}
+    if (summary["xecbs"]["status"] != str(TrialSuccessStatus.SUCCESS)
+            or summary["xecbs"]["conflicts"] or len(xecbs.final.ix_best) != TILES_AGENTS):
+        raise RuntimeError(f"multi-tile XECBS: {summary['xecbs']}")
+    for p, state in zip(trial.planners, kept_states):
+        p._generator.set_state(state)
+    replay = search("XECBS")
+    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+        _, replay_exp, _, _ = replay.plan(runtime_limit=600)
+    diff = float((xecbs.final.paths_all - replay.final.paths_all).abs().max())
+    same = (replay_exp == summary["xecbs"]["expansions"]
+            and xecbs.final.ix_best == replay.final.ix_best)
+    print(f"replay: multi-tile XECBS on the card with both plain versions in "
+          f"{replay.timing['plan_s']:.3f} s, {replay_exp} expansions, indices equal "
+          f"{xecbs.final.ix_best == replay.final.ix_best}, max |trajs_final kernels - plain| "
+          f"{diff:.3e} (tolerance {REPLAY_TOL})")
+    if not same or not diff <= REPLAY_TOL:
+        raise RuntimeError(f"the kernels' and the plain versions' multi-tile searches differ: "
+                           f"max diff {diff}")
+    summary["pp_warmup_syncs"] = warm_up(search("PP"))
+    summary["pp"] = measured(search("PP"), "PP")
+    print(f"tiles: PP status {summary['pp']['status']} (reported, not held)")
+    return {"kernel": kernel, "launches": launches, "summary": summary}
 
 
 if __name__ == "__main__":

@@ -1,22 +1,23 @@
 """Multi-agent helpers: validity gates, path padding, start/goal layouts.
 
 Twin of `mmd_tpu/common/multi_agent_utils.py` (reference:
-mmd/common/multi_agent_utils.py:28-155). The gates run once per team
+mmd/common/multi_agent_utils.py:28-225). The gates run once per team
 instance, on the task's device.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mmd_torch.envs.grid_sdf import grid_sdf_pair
 from mmd_torch.robots.disk import DiskRobot, check_rr_collisions
 
 
 def _on(task, arrays) -> torch.Tensor:
     return torch.as_tensor(np.stack([np.asarray(a, np.float32) for a in arrays]),
-                           device=task.scene.ws_min.device)
+                           device=task.device)
 
 
 def is_multi_agent_state_valid(robot: DiskRobot, task, state_pos_l: List) -> bool:
@@ -83,3 +84,52 @@ def get_start_goal_pos_circle(num_agents: int, radius: float = 0.8
         goals.append(np.array([radius * np.cos(a + np.pi), radius * np.sin(a + np.pi)],
                               np.float32))
     return starts, goals
+
+
+def get_start_goal_pos_boundary(num_agents: int, dist: float = 0.87
+                                ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """Starts on the circle of radius 0.8 pushed out to the box of
+    half-width `dist` along their larger axis, each goal the start mirrored
+    across the other axis (reference: multi_agent_utils.py:157-174)."""
+    starts = []
+    for i in range(num_agents):
+        a = 2 * np.pi * i / num_agents
+        s = np.array([0.8 * np.cos(a), 0.8 * np.sin(a)], np.float32)
+        if abs(s[0]) > abs(s[1]):
+            s[0] = np.sign(s[0]) * dist
+        else:
+            s[1] = np.sign(s[1]) * dist
+        starts.append(s)
+    goals = [np.array([s[0] if abs(s[0]) < abs(s[1]) else -s[0],
+                       s[1] if abs(s[1]) < abs(s[0]) else -s[1]], np.float32)
+             for s in starts]
+    return starts, goals
+
+
+def get_start_goal_pos_random_in_env(num_agents: int, task,
+                                     rng: Optional[np.random.Generator] = None,
+                                     margin: float = 0.15,
+                                     obstacle_margin: float = 0.16,
+                                     max_tries: int = 10000
+                                     ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """Rejection-sampled starts and goals, each set mutually farther apart
+    than `margin` and farther than `obstacle_margin` from the map's objects
+    by its object grid (reference: multi_agent_utils.py:183-225). Each set
+    draws max_tries candidates at once and clears them in one lookup."""
+    rng = rng or np.random.default_rng(0)
+    grid = task.scene.grid
+
+    def sample_set() -> List[np.ndarray]:
+        cand = rng.random((max_tries, 2)).astype(np.float32) * 1.9 - 0.95
+        sdf, _ = grid_sdf_pair(grid, grid, torch.as_tensor(cand, device=task.device))
+        clear = sdf.cpu().numpy() > obstacle_margin
+        pts: List[np.ndarray] = []
+        for q in cand[clear]:
+            if pts and np.min(np.linalg.norm(np.stack(pts) - q, axis=-1)) <= margin:
+                continue
+            pts.append(q)
+            if len(pts) == num_agents:
+                return pts
+        raise RuntimeError("could not sample valid multi-agent states")
+
+    return sample_set(), sample_set()

@@ -5,6 +5,9 @@ Twin of `mmd_tpu/costs/constraints.py` (reference: mmd/common/constraints.py:
 constraints of up to P (point, t-range, radius) triples; waypoint h adds
 relu(radius - ||q_h - q_c||) while start <= h < end. The reference's
 constant offsets vanish under the gradient, which is all guidance uses.
+A multi-tile plan stacks one set per tile, (T, K, P, ...), and one
+`SoftPathConstraints` per tile, (T, R, H, ...); tile m's act on tile m's
+rows of a (T, B, H, D) batch.
 """
 from __future__ import annotations
 
@@ -26,17 +29,28 @@ class ConstraintSet:
     weight: torch.Tensor      # (K,) guidance gradient weight (hard/soft)
     point_mask: torch.Tensor  # (K, P) 1.0 where the point is real
     active: torch.Tensor      # (K,) 1.0 where the constraint is real
+    # (A tile stack's fields lead with T: q (T, K, P, q_dim), ...)
     # Host copy of active.sum(): the guide skips a set with none, which adds
     # exactly zero, without reading the card.
     n_active: int = 0
 
     @property
     def max_constraints(self) -> int:
-        return self.q.shape[0]
+        return self.q.shape[-3]
 
     @property
     def max_points(self) -> int:
-        return self.q.shape[1]
+        return self.q.shape[-2]
+
+    def flat(self) -> "ConstraintSet":
+        """A tile stack's sets (T, K, ...) as one set of T * K constraints,
+        tile-major; a single set as it is."""
+        lead = self.q.dim() - 3
+        if lead == 0:
+            return self
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).flatten(0, lead)
+            for f in dataclasses.fields(self) if f.name != "n_active"})
 
 
 def _as_set(arrays: dict, device) -> ConstraintSet:
@@ -70,6 +84,24 @@ def pack_constraint_set(
 ) -> ConstraintSet:
     """Pack host-side constraints into one padded set (reference:
     mpd.py:329-342, 409-412 for the hard/soft weight split)."""
+    return _as_set(_pack_arrays(constraints, max_constraints, max_points, hard_weight,
+                                soft_weight, q_dim), device)
+
+
+def pack_constraint_sets(per_tile: Sequence[Sequence], max_constraints: int,
+                         max_points: int, q_dim: int = 2, device="cuda") -> ConstraintSet:
+    """One padded set per tile, packed on the host and moved as one
+    (T, K, P, ...) stack, with the default hard and soft weights; an empty
+    list gives the tile an empty set."""
+    arrays = [_pack_arrays(c, max_constraints, max_points,
+                           default_params.weight_grad_cost_constraints,
+                           default_params.weight_grad_cost_soft_constraints, q_dim)
+              for c in per_tile]
+    return _as_set({k: np.stack([a[k] for a in arrays]) for k in arrays[0]}, device)
+
+
+def _pack_arrays(constraints: Sequence, max_constraints: int, max_points: int,
+                 hard_weight: float, soft_weight: float, q_dim: int) -> dict:
     K, P = max_constraints, max_points
     a = _zeros(K, P, q_dim)
     if len(constraints) > K:
@@ -86,7 +118,7 @@ def pack_constraint_set(
         a["point_mask"][k, :n] = 1.0
         a["weight"][k] = soft_weight if getattr(c, "is_soft", False) else hard_weight
         a["active"][k] = 1.0
-    return _as_set(a, device)
+    return a
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,21 +126,25 @@ class SoftPathConstraints:
     """One keep-out ball per (row, waypoint): the ECBS/PP soft constraints
     (reference cbs.py:468-506), one cost term with one gradient clip."""
 
-    points: torch.Tensor  # (R, T, q_dim) row r's ball center at waypoint t
-    mask: torch.Tensor    # (R, T) 1.0 where active
+    points: torch.Tensor  # (R, H, q_dim) row r's ball center at waypoint h
+    mask: torch.Tensor    # (R, H) 1.0 where active
     radius: torch.Tensor  # () scalar
     weight: torch.Tensor  # () scalar guidance weight
+    # A tile stack: points (T, R, H, q_dim), mask (T, R, H), radius and
+    # weight (T,).
 
     @property
     def rows(self) -> int:
-        return self.points.shape[0]
+        return self.points.shape[-3]
 
 
 def soft_path_cost(q_pos: torch.Tensor, spc: SoftPathConstraints) -> torch.Tensor:
-    """q_pos (B, T, q_dim) -> (B,): sum_{r,t} mask * relu(radius - dist)."""
-    d = torch.linalg.vector_norm(q_pos[:, None, :, :] - spc.points[None], dim=-1)
-    pen = relu(spc.radius - d) * spc.mask[None]
-    return pen.sum(dim=(1, 2))
+    """q_pos (B, H, q_dim) -> (B,): sum_{r,h} mask * relu(radius - dist);
+    with a tile stack, (T, B, H, q_dim) -> (T, B)."""
+    d = torch.linalg.vector_norm(q_pos[..., :, None, :, :] - spc.points[..., None, :, :, :],
+                                 dim=-1)                                   # (..., B, R, H)
+    pen = relu(spc.radius[..., None, None, None] - d) * spc.mask[..., None, :, :]
+    return pen.sum(dim=(-2, -1))
 
 
 # A per-waypoint group needs this many points to leave the generic set.

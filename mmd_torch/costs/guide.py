@@ -18,6 +18,13 @@ guides.py:152-234). Quirks kept as the JAX package keeps them:
 The two collision terms run as one CUDA kernel on the card
 (`mmd_torch/ops/collision_guide.py`) and as `collision_guide_plain`, their
 autograd code, on the CPU.
+
+A multi-tile plan guides its T tiles in one call, as JAX's vmap of the
+guided step over tiles does (mmd_tpu/models/ensemble.py:119-131): x is
+(T, B, H, D) and the `GuideData` is stacked over tiles (a `SceneStack`,
+per-tile normalizer limits of shape (T, 1, 1, D), constraint sets
+(T, K, P, ...), soft paths (T, R, H, ...)); each term is batched over
+(T, B), and tile m's rows see only tile m's data.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from mmd_torch.costs.constraints import (
 )
 from mmd_torch.costs.gp import gp_trajectory_cost
 from mmd_torch.datasets.normalization import LimitsNormalizer
-from mmd_torch.envs.envs import SceneData
+from mmd_torch.envs.envs import SceneData, SceneStack
 from mmd_torch.ops.collision_guide import collision_guide
 from mmd_torch.tasks.task import boundary_signed_distances, scene_object_sdf
 
@@ -59,9 +66,9 @@ class GuideConfig:
 
 @dataclasses.dataclass(frozen=True)
 class GuideData:
-    """Per-plan guide inputs."""
+    """Per-plan guide inputs, or a tile stack's (module docstring)."""
 
-    scene: SceneData
+    scene: SceneData  # or a SceneStack
     normalizer: LimitsNormalizer
     constraints: ConstraintSet
     soft_paths: Optional[SoftPathConstraints] = None
@@ -102,7 +109,11 @@ def _grad(cost, u: torch.Tensor) -> torch.Tensor:
 
 def collision_guide_plain(u: torch.Tensor, scene: SceneData, cfg: GuideConfig) -> torch.Tensor:
     """The collision-guide kernel's plain version: both collision terms of
-    the guide, each through `_finish` and weighted, by autograd."""
+    the guide, each through `_finish` and weighted, by autograd. With a
+    `SceneStack` u is (T, ..., H, 4) and tile m's rows take scene m."""
+    if isinstance(scene, SceneStack):
+        return torch.stack([collision_guide_plain(u[m], s, cfg)
+                            for m, s in enumerate(scene.scenes)])
     with torch.enable_grad():
         g_obj = _grad(lambda v: collision_cost_objects(v, scene, cfg), u)
         g_bound = _grad(lambda v: collision_cost_boundaries(v, scene, cfg), u)
@@ -111,7 +122,8 @@ def collision_guide_plain(u: torch.Tensor, scene: SceneData, cfg: GuideConfig) -
 
 
 def collision_gradient(u: torch.Tensor, scene: SceneData, cfg: GuideConfig) -> torch.Tensor:
-    """u (..., H, 4) unnormalized -> the guide's collision step (..., H, 4).
+    """u (..., H, 4) unnormalized -> the guide's collision step (..., H, 4);
+    (T, ..., H, 4) on a `SceneStack`.
 
     CUDA tensors go to the kernel, CPU tensors to the plain version.
     """
@@ -122,9 +134,25 @@ def collision_gradient(u: torch.Tensor, scene: SceneData, cfg: GuideConfig) -> t
     raise ValueError(f"collision_gradient: unsupported device {u.device}")
 
 
+def _constraint_gradient(u: torch.Tensor, cset: ConstraintSet, cfg: GuideConfig) -> torch.Tensor:
+    """Every constraint's weighted, clipped gradient, summed. Constraint k
+    acts on row k of a K-fold copy of u, so one backward pass gives each
+    its own gradient to clip; a tile stack's T * K constraints act on T * K
+    rows, tile m's on copies of u[m]."""
+    K = cset.max_constraints
+    batch = u.shape[cset.q.dim() - 3:]    # (B, H, D), after a stack's T
+    flat = cset.flat()
+    uk = u.detach().reshape(-1, 1, *batch).expand(-1, K, *batch).contiguous()
+    uk = uk.view(-1, *batch).requires_grad_(True)
+    (g,) = torch.autograd.grad(constraint_costs(uk[..., : cfg.q_dim], flat).sum(), uk)
+    g_cons = flat.weight[:, None, None, None] * _finish(g, cfg.max_grad_norm)
+    return g_cons.reshape(-1, K, *batch).sum(dim=1).reshape(u.shape)
+
+
 def guide_gradient(x_norm: torch.Tensor, gd: GuideData, cfg: GuideConfig) -> torch.Tensor:
-    """One guide evaluation. x_norm (B, H, D) -> the step to add to it
-    (x <- x + guide(x), sample_functions.py:100-107)."""
+    """One guide evaluation. x_norm (B, H, D), or (T, B, H, D) with a tile
+    stack's `gd` -> the step to add to it (x <- x + guide(x),
+    sample_functions.py:100-107)."""
     with torch.enable_grad():
         u = gd.normalizer.unnormalize(x_norm.detach())
         # Both collision terms, weighted and clipped: one kernel launch on
@@ -133,18 +161,11 @@ def guide_gradient(x_norm: torch.Tensor, gd: GuideData, cfg: GuideConfig) -> tor
         g_gp = _grad(lambda v: gp_trajectory_cost(v, cfg.dt), u)
         total = total + cfg.weight_smoothness * _finish(g_gp, cfg.max_grad_norm)
 
-        cset = gd.constraints
-        if cset.n_active > 0:
-            # Constraint k acts on row k of a K-fold copy, so one backward
-            # pass gives every constraint its own gradient to clip.
-            K = cset.max_constraints
-            uk = u.detach().expand(K, *u.shape).clone().requires_grad_(True)
-            (g,) = torch.autograd.grad(
-                constraint_costs(uk[..., : cfg.q_dim], cset).sum(), uk)
-            g_cons = cset.weight[:, None, None, None] * _finish(g, cfg.max_grad_norm)
-            total = total + g_cons.sum(dim=0)
+        if gd.constraints.n_active > 0:
+            total = total + _constraint_gradient(u, gd.constraints, cfg)
 
-        if gd.soft_paths is not None:
-            g_sp = _grad(lambda v: soft_path_cost(v[..., : cfg.q_dim], gd.soft_paths), u)
-            total = total + gd.soft_paths.weight * _finish(g_sp, cfg.max_grad_norm)
+        spc = gd.soft_paths
+        if spc is not None:
+            g_sp = _grad(lambda v: soft_path_cost(v[..., : cfg.q_dim], spc), u)
+            total = total + spc.weight[..., None, None, None] * _finish(g_sp, cfg.max_grad_norm)
     return -total

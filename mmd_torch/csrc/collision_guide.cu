@@ -1,6 +1,6 @@
 // Collision guide for NVIDIA Hopper (sm_90a): the whole collision part of
 // one guide evaluation in one launch. For each waypoint of u (..., H, 4),
-// unnormalized, it writes
+// unnormalized, on the scene of its tile (below), it writes
 //
 //   out = w * clip(d/du objects(u)) + w * clip(d/du boundaries(u))
 //
@@ -26,6 +26,14 @@
 // what this kernel does in one. So the design gives one launch all of that
 // work and keeps every intermediate in registers.
 //
+// Tiles: a multi-tile plan guides T tiles, each on its own map, in one
+// call. u is then (T, B, H, 4) and the table holds T scenes one after the
+// other, (T, N0, N1, 8); row r reads tile r / tile_rows (tile_rows = B * H).
+// Every map shares one grid box and one wall box, so those constants are
+// the same for all tiles. A single scene is the case T = 1 (tile_rows =
+// n_rows). The byte bound grows with T (each table's distinct cells); the
+// launch count does not.
+//
 // Threads: one per waypoint row, 128 to a block (32 blocks at 64 x 64).
 // Each thread's clip needs only its own row, so there is no reduction and
 // no traffic between threads. Each thread reads its row as one 16-byte
@@ -35,8 +43,9 @@
 // Cells: the scene's two grids are packed once per scene (SceneData) into
 // one table of 32-byte records (v0, g0x, g0y, v1, g1x, g1y, 0, 0), so a
 // lookup reads one 32-byte L2 sector (two aligned float4 loads) instead of
-// four arrays; the 8 B of padding buy the alignment. The 400 x 400 table is 5.12 MB and stays in the 50 MB L2 across
-// the guide loop.
+// four arrays; the 8 B of padding buy the alignment. The 400 x 400 table is
+// 5.12 MB, three tiles' 15.4 MB, and stays in the 50 MB L2 across the guide
+// loop.
 //
 // No shared memory, TMA or tensor cores: the cells a batch touches are
 // scattered, and there is neither a product nor a reuse pattern between
@@ -89,7 +98,8 @@ __device__ __forceinline__ float2 clip_and_weigh(float gx, float gy,
 
 __global__ void __launch_bounds__(kThreads) collision_guide_kernel(
     const float4* __restrict__ u, int64_t n_rows, int horizon,
-    const float4* __restrict__ cells, int n0, int n1, float lo0, float lo1,
+    int64_t tile_rows, const float4* __restrict__ cells, int n0, int n1,
+    float lo0, float lo1,
     float span0, float span1, float wall_lo0, float wall_lo1,
     float wall_hi0, float wall_hi1, float margin, float weight,
     float max_norm, float4* __restrict__ out) {
@@ -104,8 +114,9 @@ __global__ void __launch_bounds__(kThreads) collision_guide_kernel(
   const float x = row.x, y = row.y;
 
   // Objects: relu(margin - min(v0, v1)); the gradient of the smaller grid's
-  // cell (both halves on a tie) times the cell gradients.
-  const int64_t cell =
+  // cell (both halves on a tie) times the cell gradients, in the row's
+  // tile's table.
+  const int64_t cell = (r / tile_rows) * n0 * n1 +
       (int64_t)cell_of(x, lo0, span0, n0) * n1 + cell_of(y, lo1, span1, n1);
   const float4 c0 = __ldg(cells + 2 * cell);      // v0, g0x, g0y, v1
   const float4 c1 = __ldg(cells + 2 * cell + 1);  // g1x, g1y, 0, 0
@@ -149,16 +160,19 @@ __global__ void __launch_bounds__(kThreads) collision_guide_kernel(
 }  // namespace
 
 extern "C" int collision_guide(
-    const void* u, long long n_rows, int horizon, const void* cells, int n0,
-    int n1, float lo0, float lo1, float span0, float span1, float wall_lo0,
-    float wall_lo1, float wall_hi0, float wall_hi1, float margin,
-    float weight, float max_norm, void* out, void* stream) {
-  if (n_rows <= 0 || horizon < 2) return (int)cudaErrorInvalidValue;
+    const void* u, long long n_rows, int horizon, long long tile_rows,
+    const void* cells, int n0, int n1, float lo0, float lo1, float span0,
+    float span1, float wall_lo0, float wall_lo1, float wall_hi0,
+    float wall_hi1, float margin, float weight, float max_norm, void* out,
+    void* stream) {
+  if (n_rows <= 0 || horizon < 2 || tile_rows <= 0 || tile_rows % horizon ||
+      n_rows % tile_rows)
+    return (int)cudaErrorInvalidValue;
   const long long blocks = (n_rows + kThreads - 1) / kThreads;
   collision_guide_kernel<<<(unsigned int)blocks, kThreads, 0,
                            (cudaStream_t)stream>>>(
-      (const float4*)u, (int64_t)n_rows, horizon, (const float4*)cells, n0,
-      n1, lo0, lo1, span0, span1, wall_lo0, wall_lo1, wall_hi0, wall_hi1,
+      (const float4*)u, (int64_t)n_rows, horizon, (int64_t)tile_rows,
+      (const float4*)cells, n0, n1, lo0, lo1, span0, span1, wall_lo0, wall_lo1, wall_hi0, wall_hi1,
       margin, weight, max_norm, (float4*)out);
   return (int)cudaGetLastError();
 }

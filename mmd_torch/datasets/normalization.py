@@ -6,6 +6,7 @@ Twin of `LimitsNormalizer` in `mmd_tpu/datasets/normalization.py:18-57`
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -20,6 +21,14 @@ class LimitsNormalizer:
         return LimitsNormalizer(
             mins=torch.as_tensor(mins, dtype=torch.float32, device=device),
             maxs=torch.as_tensor(maxs, dtype=torch.float32, device=device))
+
+    @staticmethod
+    def stack(normalizers: Sequence["LimitsNormalizer"]) -> "LimitsNormalizer":
+        """Per-tile normalizers as one whose limits are (T, 1, 1, D): it
+        maps a (T, B, H, D) batch, or a chain (S, T, B, H, D), tile by tile."""
+        return LimitsNormalizer(
+            mins=torch.stack([n.mins for n in normalizers])[:, None, None, :],
+            maxs=torch.stack([n.maxs for n in normalizers])[:, None, None, :])
 
     @property
     def span(self) -> torch.Tensor:

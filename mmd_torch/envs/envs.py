@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,25 @@ class SceneData:
         hi = (self.ws_max.cpu() * WS_BOUNDARY_SCALE).tolist()
         object.__setattr__(self, "guide_table",
                            GuideTable.build(self.grid, self.extra_grid, lo, hi))
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneStack:
+    """The scenes of a multi-tile plan's T tiles, read together: tile m's
+    rows of a (T, B, H, D) batch read scene m. The collision-guide kernel
+    reads them as one stacked table, built once per stack."""
+
+    scenes: Tuple[SceneData, ...]
+    guide_table: GuideTable = dataclasses.field(init=False, repr=False,
+                                                compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "guide_table",
+                           GuideTable.stack([s.guide_table for s in self.scenes]))
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self.scenes)
 
 
 class Env2D:

@@ -65,13 +65,16 @@ class SamplerNoise:
 
     x_T: torch.Tensor   # (B, H, D) x_T, or a warm start's q-sample noise
     steps: torch.Tensor  # (n_steps + n_no_noise, B, H, D), one per step
+    # A multi-tile loop's draws have a tile axis after the step's:
+    # x_T (T, B, H, D), steps (n, T, B, H, D).
 
     @staticmethod
     def draw(cfg: DiffusionConfig, generator: torch.Generator, device,
-             n_steps: Optional[int] = None) -> "SamplerNoise":
+             n_steps: Optional[int] = None, n_tiles: Optional[int] = None) -> "SamplerNoise":
         """The draws of a loop of n_steps noisy steps (all of them by
-        default; a local replan's n_denoising_steps)."""
-        shape = (cfg.n_samples, cfg.horizon, cfg.state_dim)
+        default; a local replan's n_denoising_steps), for n_tiles tiles if
+        given."""
+        shape = ((n_tiles,) if n_tiles else ()) + (cfg.n_samples, cfg.horizon, cfg.state_dim)
         n = len(cfg.step_indices(n_steps))
         kw = dict(generator=generator, device=device, dtype=torch.float32)
         return SamplerNoise(x_T=torch.randn(shape, **kw),

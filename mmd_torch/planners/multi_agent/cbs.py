@@ -48,11 +48,13 @@ from mmd_torch.planners.multi_agent.conflict_detection import (
     team_conflict_summary,
 )
 from mmd_torch.planners.multi_agent.fused import (
+    expand_child_ensemble,
     expand_children,
     expand_fresh,
     expand_local,
 )
 from mmd_torch.planners.single_agent.mpd import MPD
+from mmd_torch.planners.single_agent.mpd_ensemble import MPDEnsemble
 from mmd_torch.utils.transfer import to_device
 
 
@@ -179,6 +181,8 @@ class CBSBase:
                 if gen is not None else default_params.seed)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        # The start times on the device, for padding without a host copy.
+        self.start_times = to_device(self.start_time_l, self.device, torch.int64)
         self._reset_timing()
 
     def _reset_timing(self):
@@ -223,20 +227,6 @@ class CBSBase:
         return SamplerNoise.draw(self.low_level_planner_l[0].cfg, self._generator,
                                  self.device, steps)
 
-    def _pad_pos(self, pos: np.ndarray, agent_id: int, max_t: int) -> np.ndarray:
-        """Agent `agent_id`'s positions (..., T, 2) on the team's timeline of
-        max_t steps: its first state repeated for its start time, its last
-        out to max_t."""
-        st = self.start_time_l[agent_id]
-        tail = max_t - pos.shape[-2] - st
-        parts = []
-        if st > 0:
-            parts.append(np.repeat(pos[..., :1, :], st, axis=-2))
-        parts.append(pos)
-        if tail > 0:
-            parts.append(np.repeat(pos[..., -1:, :], tail, axis=-2))
-        return np.concatenate(parts, axis=-2)
-
     def _team_pos(self, state: SearchState) -> torch.Tensor:
         """The node's (n, T, 2) team positions on the device, staggered
         teams padded by start time."""
@@ -244,8 +234,7 @@ class CBSBase:
         if self.uniform_time:
             return pos
         L = state.paths_all.shape[2]
-        starts = torch.as_tensor(self.start_time_l, device=pos.device)
-        return pad_team_positions(pos, starts, max(self.start_time_l) + L)
+        return pad_team_positions(pos, self.start_times, max(self.start_time_l) + L)
 
     def _summarize(self, state: SearchState):
         """Fill the node's n_conflicts and first_conflict from one fetch."""
@@ -585,14 +574,19 @@ class CBS(CBSBase):
         return True
 
     def _expand_child(self, state: SearchState, agent_id: int, constraint, H_all: int):
-        """One child, replanned alone (JAX cbs.py:1213-1390 without the
-        ensemble branch): on the device with its choice and summary where
-        the clock is uniform and the choice is least-collisions, else
-        chosen against the team's padded paths, by least collisions or
-        least cost."""
+        """One child, replanned alone (JAX cbs.py:1213-1390): on the device
+        with its choice and summary where the clock is uniform and the
+        choice is least-collisions, or where the agent is multi-tile
+        (`MPDEnsemble`) and the choice is least-collisions; else chosen
+        against the team's padded paths, by least collisions or least
+        cost."""
         child = self._child(state, agent_id, constraint, H_all)
         planner = self.low_level_planner_l[agent_id]
         hard_l = _plannable(child.constraints[agent_id])
+        if (self._densify == 1 and isinstance(planner, MPDEnsemble)
+                and self.choose_path_strategy == "least_collisions"):
+            self._expand_child_ensemble(child, agent_id, planner, hard_l)
+            return
         cons_l = hard_l + (self.create_soft_constraints_from_other_agents_paths(
             child, agent_id) if self.is_ecbs else [])
         if (self.uniform_time and self._densify == 1 and isinstance(planner, MPD)
@@ -662,4 +656,37 @@ class CBS(CBSBase):
             self._summarize(child)
         else:
             self._set_conflicts(child, *summary)
+        self.open_l.append(child)
+
+    def _expand_child_ensemble(self, child: SearchState, agent_id: int,
+                               planner: MPDEnsemble, hard_l: List[MultiPointConstraint]):
+        """The multi-tile child (JAX cbs.py:1292-1331): its hard constraints
+        routed per tile by the planner, ECBS's soft balls built on the
+        device (`fused.expand_child_ensemble`), one read; an ECBS batch the
+        soft balls starved replans with the hard constraints only."""
+        gds = planner._guide_data(*planner._route_constraints(hard_l))
+        paths_all = child.paths_all
+        ix_best = to_device(child.ix_best, self.device, torch.int64)
+        kw = dict(dtype=torch.float32, device=self.device)
+        soft_radius = torch.full((), default_params.vertex_constraint_radius, **kw)
+        soft_weight = torch.full((), default_params.weight_grad_cost_soft_constraints, **kw)
+        T_out = max(self.start_time_l) + paths_all.shape[2]
+
+        def run_once(use_soft: bool):
+            self._count_plans(self.is_xcbs)
+            new_paths, scalars = expand_child_ensemble(
+                planner, gds, planner.draw_noise(local=self.is_xcbs), paths_all, ix_best,
+                agent_id, self.start_times, T_out, self.margin, soft_radius, soft_weight,
+                use_soft=use_soft, local=self.is_xcbs)
+            return new_paths, self._fetch(scalars, phase="expand")
+
+        new_paths, (any_free, ix, *summary) = run_once(self.is_ecbs)
+        if not any_free and self.is_ecbs:
+            new_paths, (any_free, ix, *summary) = run_once(False)
+        if not any_free:
+            self._log("Failed to find valid path in CT node.")
+            return
+        child.paths_all = new_paths
+        child.ix_best[agent_id] = int(ix)
+        self._set_conflicts(child, *summary)
         self.open_l.append(child)

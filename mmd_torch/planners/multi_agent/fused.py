@@ -13,6 +13,10 @@ functions of the planner.
 - `expand_children` (fused.py:99-195): every child of a conflict, one after
   the other (`torch.func.vmap` cannot pass the kernels' ctypes calls), with
   ECBS's soft balls built on the device from the parent's chosen paths
+- `expand_child_ensemble` (fused.py:732-806): one child of a multi-tile
+  (`MPDEnsemble`) agent on a staggered clock: the ensemble plan, global
+  assembly, stagger padding, the fewest-conflicts choice, the summary and
+  the team update
 """
 from __future__ import annotations
 
@@ -24,9 +28,11 @@ from mmd_torch.costs.constraints import ConstraintSet, SoftPathConstraints
 from mmd_torch.costs.guide import GuideData
 from mmd_torch.models.diffusion import HardConds, SamplerNoise
 from mmd_torch.planners.multi_agent.conflict_detection import (
+    pad_team_positions,
     select_candidate_and_conflicts,
 )
 from mmd_torch.planners.single_agent.mpd import MPD, PlanResult
+from mmd_torch.planners.single_agent.mpd_ensemble import MPDEnsemble
 
 # (any_free, ix, count, t, a, b, midpoint), tensors on the device.
 Scalars = Tuple[torch.Tensor, ...]
@@ -108,3 +114,55 @@ def expand_children(p0: MPD, hard_c: HardConds, csets: Sequence[ConstraintSet],
         trajs.append(res.trajs_final)
         scalars.append(_select(res, best_pos, agent_idx, margin))
     return torch.stack(trajs), tuple(torch.stack(x) for x in zip(*scalars))
+
+
+def expand_child_ensemble(planner: MPDEnsemble, gds: GuideData, noise: SamplerNoise,
+                          paths_all: torch.Tensor, ix_best: torch.Tensor, agent_idx: int,
+                          start_times: torch.Tensor, T_out: int, margin: float,
+                          soft_radius: torch.Tensor, soft_weight: torch.Tensor,
+                          use_soft: bool, local: bool) -> Tuple[torch.Tensor, Scalars]:
+    """One CT child of the multi-tile agent agent_idx, on the device
+    (reference: cbs.py:390-466 against MPDEnsemble, mpd_ensemble.py:335-528).
+
+    paths_all (A, B, L, D) holds the team's global batches (L = T * H for
+    every agent), start_times (A,) the stagger offsets on the device, and
+    T_out = max(start_times) + L. `gds` carries the child's hard
+    constraints, routed per tile. With `use_soft` (ECBS) the soft balls are
+    built here, per tile, from the other agents' padded chosen paths: tile
+    m's local step h is the agent's global time u = m * H + h, and another
+    agent's position at absolute time start_times[agent_idx] + u becomes a
+    ball in tile m's frame; waypoint 0 of the agent's path has none
+    (reference cbs.py:468-506 routed by split_cost_constraints_to_tasks).
+    With `local` (XCBS) the agent's current global batch, split into local
+    normalized seeds per tile, warm-starts the replan. The candidate is
+    padded onto the team's clock and chosen by fewest conflicts.
+    Returns (paths_all with the agent's row replaced, scalars)."""
+    A, B, L, D = paths_all.shape
+    T, H = planner.n_tiles, planner.n_support_points
+    others_pad = pad_team_positions(_best_pos(paths_all, ix_best), start_times, T_out)
+    start = start_times[agent_idx]
+
+    if use_soft:
+        u = torch.arange(L, device=paths_all.device).reshape(T, H)
+        tau = torch.clamp(start + u, 0, T_out - 1)
+        pts = others_pad[:, tau].permute(1, 0, 2, 3) - planner._transforms[:, None, None, :]
+        rmask = (torch.arange(A, device=paths_all.device) != agent_idx).to(torch.float32)
+        msk = rmask[None, :, None] * (u[:, None, :] >= 1).to(torch.float32)   # (T, A, H)
+        gds = GuideData(scene=gds.scene, normalizer=gds.normalizer,
+                        constraints=gds.constraints,
+                        soft_paths=SoftPathConstraints(points=pts, mask=msk,
+                                                       radius=soft_radius.expand(T),
+                                                       weight=soft_weight.expand(T)))
+
+    if local:
+        res = planner._plan_local(gds, planner.local_seeds(paths_all[agent_idx]), noise)
+    else:
+        res = planner._plan_fresh(gds, noise)
+
+    idx = torch.clamp(torch.arange(T_out, device=paths_all.device) - start, 0, L - 1)
+    cand_pad = res.trajs_final[..., :2][:, idx, :]                       # (B, T_out, 2)
+    scalars = (res.free_mask.any(), *select_candidate_and_conflicts(
+        cand_pad, res.free_mask, agent_idx, others_pad, margin))
+    new_paths = paths_all.clone()
+    new_paths[agent_idx] = res.trajs_final
+    return new_paths, scalars

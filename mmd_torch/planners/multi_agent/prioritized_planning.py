@@ -18,7 +18,6 @@ from __future__ import annotations
 import time
 from typing import List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from mmd_torch.common.multi_agent_utils import global_pad_paths
@@ -33,6 +32,7 @@ from mmd_torch.planners.multi_agent.cbs import (
     _best_paths_pos,
 )
 from mmd_torch.planners.multi_agent.conflict_detection import (
+    pad_team_positions,
     select_candidate_and_conflicts,
 )
 
@@ -128,16 +128,14 @@ class PrioritizedPlanning(CBSBase):
                 prev_pos = _best_paths_pos(torch.stack(path_tiles), ix_best)
                 cand_pos = res.trajs_final[..., :2]
                 if not self.uniform_time:
-                    # Compare on the team's timeline (:150-183).
+                    # Compare on the team's timeline (:150-183), padded on
+                    # the device.
                     H = cand_pos.shape[1]
                     max_t = max(max(self.start_time_l[j] + prev_pos.shape[1]
                                     for j in range(i)), self.start_time_l[i] + H)
-                    dev = prev_pos.device
-                    prev_pos = torch.as_tensor(np.stack([
-                        self._pad_pos(prev_pos[j].cpu().numpy(), j, max_t)
-                        for j in range(i)]), device=dev)
-                    cand_pos = torch.as_tensor(
-                        self._pad_pos(cand_pos.cpu().numpy(), i, max_t), device=dev)
+                    prev_pos = pad_team_positions(prev_pos, self.start_times[:i], max_t)
+                    cand_pos = pad_team_positions(
+                        cand_pos, self.start_times[i].expand(cand_pos.shape[0]), max_t)
                 paths_pos = torch.cat([prev_pos, torch.full(
                     (1, prev_pos.shape[1], 2), 1e6, device=prev_pos.device)])
                 ix, *_, any_free = self._fetch(

@@ -64,7 +64,8 @@ class PlanningTask:
     def __init__(self, env: Env2D, robot: Optional[DiskRobot] = None):
         self.env = env
         self.scene = env.scene
-        self.robot = robot or DiskRobot.make(device=env.scene.ws_min.device)
+        self.device = env.scene.ws_min.device
+        self.robot = robot or DiskRobot.make(device=self.device)
         # The reference classifies at the robot's radius (tasks.py:249-254).
         self.margin = self.robot.radius
 

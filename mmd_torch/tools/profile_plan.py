@@ -3,6 +3,7 @@
     python -m mmd_torch.tools.profile_plan                            # one robot
     python -m mmd_torch.tools.profile_plan --team                     # 10-robot PP
     python -m mmd_torch.tools.profile_plan --team --planner XECBS     # 10-robot XECBS
+    python -m mmd_torch.tools.profile_plan --instance EnvTestTwoByTwoRobotPlanarDiskRandom
 
 Plans EnvEmptyNoWait2D pair 0 of the 10-agent circle at full width (B=64,
 H=64, 25+1 steps, 14 guided steps x 20 guide iterations) after one warm-up
@@ -44,6 +45,22 @@ card and one JSON line:
   unet_forward: one forward at B=64 in bfloat16 and in float32 (CUDA-event
   ms over 50 calls, kernels in one traced call)
 - port_kernels: each port kernel's launches and device time in that plan
+
+With --instance EnvTestTwoByTwoRobotPlanarDiskRandom it profiles the
+multi-tile search of that instance (seed 0, 4 agents, stagger dt 10,
+`MPDEnsemble` agents of 3 tiles, float32, B=64) with --planner XECBS (the
+default here) or PP, after one warm-up search, and prints the card and one
+JSON line:
+- plan_s, expansions, plans by kind and host waits of 3 searches
+- busy_s, idle_share, idle_share_traced, kernels_per_plan, port_kernels,
+  traced_plans: as above, for one traced search
+- part_ms: CUDA-event ms of agent 0's parts: the UNet step batched over its
+  3 tiles (one forward over the stacked parameters, (3, 64, 64, 4)) and
+  per tile (3 forwards one after the other), one guide_gradient over the 3
+  tiles, one collision-guide call at (3, 64, 64, 4), one guided step
+  (forward, 20 guide calls, noise, seams); part_kernels: kernels in one
+  traced call of each but the collision guide; agent0_plan_s: its fresh
+  and local plans, 4 each in turns (host clock)
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -216,12 +233,101 @@ def _unet_forwards(planner) -> dict:
     return out
 
 
+TILES_INSTANCE = "EnvTestTwoByTwoRobotPlanarDiskRandom"
+
+
+def profile_tiles(card: str, planner: str) -> dict:
+    """The multi-tile search's numbers (module docstring, --instance)."""
+    from mmd_torch.common.experiences import PathBatchExperience
+    from mmd_torch.experiments.problems import get_planning_problem
+    from mmd_torch.models.ensemble import ensemble_step
+    from mmd_torch.experiments.trial import (
+        ModelRegistry,
+        build_multi_agent_trial,
+        make_team_planner,
+    )
+
+    registry = ModelRegistry(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), device="cuda")
+    s, g, ids, sk = get_planning_problem(TILES_INSTANCE, 4, seed=0)
+    trial = build_multi_agent_trial(planner, s, g, ids, sk, registry, stagger_dt=10)
+    p0 = trial.planners[0]
+
+    def team():
+        return make_team_planner(planner, trial.planners, trial.start_l, trial.goal_l,
+                                 start_time_l=trial.start_time_l,
+                                 reference_task=trial.team.reference_task)
+
+    load_kernels()
+    team().plan(runtime_limit=600)  # warm-up
+    plan_s, outcome = [], []
+    for _ in range(3):
+        tp = team()
+        _, n_exp, status, n_conflicts = tp.plan(runtime_limit=600)
+        t = tp.timing
+        plan_s.append(t["plan_s"])
+        outcome.append([str(status), n_conflicts, n_exp, t["plans_fresh"], t["plans_local"],
+                        {k: v for k, v in t.items() if k.startswith("device_")}])
+    traced = team()
+    traced_s, events = _traced(lambda: traced.plan(runtime_limit=600), host=False)
+    busy_s = _busy_us(events) * 1e-6 if events else None  # None: not measured
+
+    # Agent 0's parts.
+    noise = p0.draw_noise()
+    x = noise.x_T
+    tb = torch.full((x.shape[1],), 7, dtype=torch.int64, device="cuda")
+    gds = p0._guide_data(*p0._route_constraints(None))
+    u = p0.normalizer.unnormalize(x)
+
+    def per_tile():
+        return [m(x[k], tb) for k, m in enumerate(p0.model.models)]
+
+    def guided_step():  # t = 5: a guided step with noise
+        return ensemble_step(p0.model, p0.schedule, x, 5, noise.steps[0], p0.hard_conds,
+                             p0.cc, gds, p0.cfg, p0.guide_cfg)
+
+    with torch.no_grad():
+        part_ms = {
+            "unet_step_batched": _event_ms(lambda: p0.model(x, tb), 26),
+            "unet_step_per_tile": _event_ms(per_tile, 26),
+            "guide_gradient": _event_ms(lambda: guide_gradient(x, gds, p0.guide_cfg), 50),
+            "collision_guide": _event_ms(lambda: cg.collision_guide(u, p0.scene, p0.guide_cfg),
+                                         200),
+            "guided_step": _event_ms(guided_step, 5),
+        }
+        kernels = {"unet_step_batched": len(_traced(lambda: p0.model(x, tb), host=False)[1]),
+                   "unet_step_per_tile": len(_traced(per_tile, host=False)[1]),
+                   "guide_gradient": len(_traced(
+                       lambda: guide_gradient(x, gds, p0.guide_cfg), host=False)[1]),
+                   "guided_step": len(_traced(guided_step, host=False)[1])}
+    plans = {"fresh": [], "local": []}
+    kept = p0().trajs_final
+    for kind in ("fresh", "local", "local", "fresh") * 2:
+        t0 = time.perf_counter()
+        p0(experience=PathBatchExperience(kept) if kind == "local" else None)
+        plans[kind].append(time.perf_counter() - t0)
+    untraced = statistics.median(plan_s)
+    return {"tiles": {
+        "instance": TILES_INSTANCE, "planner": planner, "agents": 4, "stagger_dt": 10,
+        "tiles_per_agent": p0.n_tiles, "plan_s": plan_s, "outcome": outcome,
+        "traced_plans": [traced.timing["plans_fresh"], traced.timing["plans_local"]],
+        "busy_s": busy_s, "traced_plan_s": traced_s, "kernels_per_plan": len(events),
+        "idle_share": None if busy_s is None else 1.0 - busy_s / untraced,
+        "idle_share_traced": None if busy_s is None else 1.0 - busy_s / traced_s,
+        "port_kernels": _port_kernels(events), "part_ms": part_ms, "part_kernels": kernels,
+        "agent0_plan_s": plans},
+        "device": torch.cuda.get_device_name(0), "card": card}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--team", action="store_true",
                         help="profile the 10-robot team plan instead of one robot's")
-    parser.add_argument("--planner", choices=("PP", "XECBS"), default="PP",
-                        help="the team planner of --team")
+    parser.add_argument("--planner", choices=("PP", "XECBS"), default=None,
+                        help="the team planner of --team (default PP) or --instance "
+                             "(default XECBS)")
+    parser.add_argument("--instance", choices=(TILES_INSTANCE,), default=None,
+                        help="profile the multi-tile search of this instance")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_plan: needs a CUDA card", file=sys.stderr)
@@ -231,9 +337,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
+    if args.instance:
+        print(card)
+        print(json.dumps(profile_tiles(card, args.planner or "XECBS")))
+        return 0
     if args.team:
         print(card)
-        print(json.dumps(profile_team(card, args.planner)))
+        print(json.dumps(profile_team(card, args.planner or "PP")))
         return 0
     build_s = build_seconds()
     starts, goals = get_start_goal_pos_circle(10)

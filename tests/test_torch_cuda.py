@@ -278,3 +278,119 @@ def test_bf16_forward_on_the_card_is_within_its_tolerance_of_f32():
         got, want = bf16_model(model)(x, t), model(x, t)
     assert got.dtype == torch.float32
     assert float((got - want).abs().max() / want.abs().max()) <= 2e-2
+
+
+# ------------------------------------------------------------ multi-tile
+STACKED = ("EnvConveyor2D", "EnvHighways2D", "EnvEmptyNoWait2D")
+
+
+@pytest.mark.parametrize("cutoff", [0.01, HINGE_CUTOFF], ids=["default", "hinge"])
+def test_stacked_collision_guide_matches_plain(cutoff, monkeypatch):
+    """Three scenes stacked (T = 3) at (3, 64, 64, 4): one launch, equal to
+    the plain version tile by tile; T = 1 equals the single-scene call."""
+    _need_card()
+    from mmd_torch.envs.envs import SceneStack
+
+    cfg = GuideConfig(obstacle_cutoff_margin=cutoff)
+    scenes = [make_env(e, "cuda").scene for e in STACKED]
+    stack = SceneStack(tuple(scenes))
+    u = torch.from_numpy(np.stack([waypoints((64, 64, 4), sc, cfg.collision_margin, 7 + m)
+                                   for m, sc in enumerate(scenes)])).cuda()
+    before = collision_guide.launches
+    got = collision_guide(u, stack, cfg)
+    assert collision_guide.launches == before + 1
+    one = collision_guide(u[:1].contiguous(), SceneStack((scenes[0],)), cfg)
+    single = collision_guide(u[0].contiguous(), scenes[0], cfg)
+    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
+    want = collision_guide_plain(u, stack, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not got[..., 2:].any()
+    assert torch.equal(one[0], single)
+    with pytest.raises(ValueError):
+        collision_guide(u[:2].contiguous(), stack, cfg)
+
+
+def _tiles_trial(planner_class: str, n_agents: int = 2):
+    from mmd_torch.config import DiffusionConfig
+    from mmd_torch.experiments.problems import get_planning_problem
+    from mmd_torch.experiments.trial import ModelRegistry, build_multi_agent_trial
+
+    s, g, ids, sk = get_planning_problem("EnvTestTwoByTwoRobotPlanarDiskRandom", n_agents,
+                                         seed=0)
+    return build_multi_agent_trial(planner_class, s, g, ids, sk, ModelRegistry(device="cuda"),
+                                   stagger_dt=10,
+                                   diffusion_cfg=DiffusionConfig(n_samples=8, n_guide_steps=2))
+
+
+def test_ensemble_plan_launches_once_per_guide_call_for_all_tiles():
+    """A 3-tile plan, fresh and local: one collision-guide launch per guide
+    call for all tiles and one lookup per tile; the seams hold."""
+    _need_card()
+    from mmd_torch.common.experiences import PathBatchExperience
+    from mmd_torch.models.ensemble import seam_residual
+
+    p = _tiles_trial("XECBS").planners[0]
+    load_kernels()
+    cfg = p.cfg
+    for local in (False, True):
+        exp = PathBatchExperience(p().trajs_final) if local else None
+        before = (collision_guide.launches, grid_lookup.launches)
+        out = p(experience=exp)
+        calls = cfg.n_guided_steps(3 if local else None) * cfg.n_guide_steps
+        assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
+            (calls, p.n_tiles)
+        assert out.trajs_final.shape == (8, 3 * 64, 4)
+        assert float(seam_residual(p.local_seeds(out.trajs_iters[-1]), p.cc)) <= 1e-6
+
+
+def test_multi_tile_xecbs_syncs_only_to_read_and_replays_exactly(monkeypatch):
+    """A 2-agent staggered XECBS search on the 2x2 instance (B=8, 2 guide
+    iterations a step): the launches by the search's own plan count, every
+    host sync from `cbs.to_host`, and an exact replay on the plain
+    versions."""
+    _need_card()
+    import inspect
+
+    from mmd_torch.experiments.trial import make_team_planner
+    from mmd_torch.planners.multi_agent import cbs as cbs_module
+
+    trial = _tiles_trial("XECBS")
+    load_kernels()
+
+    def search():
+        return make_team_planner("XECBS", trial.planners, trial.start_l, trial.goal_l,
+                                 start_time_l=trial.start_time_l,
+                                 reference_task=trial.team.reference_task)
+
+    search().plan()  # warm-up
+    kept = [p._generator.get_state() for p in trial.planners]
+    team = search()
+    before = (collision_guide.launches, grid_lookup.launches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, n_exp, status, _ = team.plan()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    lines, first = inspect.getsourcelines(cbs_module.to_host)
+    stray = [f"{w.filename}:{w.lineno}" for w in _sync_warnings(caught)
+             if not (w.filename == cbs_module.__file__
+                     and first <= w.lineno < first + len(lines))]
+    assert not stray, stray
+    cfg, t = trial.planners[0].cfg, team.timing
+    want = (2 * (cfg.n_guided_steps() * t["plans_fresh"]
+                 + cfg.n_guided_steps(3) * t["plans_local"]),
+            3 * (t["plans_fresh"] + t["plans_local"]))
+    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == want
+    final = team.final
+    for p, state in zip(trial.planners, kept):
+        p._generator.set_state(state)
+    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
+    monkeypatch.setattr(guide_module, "collision_guide", collision_guide_plain)
+    replay = search()
+    _, n_exp2, status2, _ = replay.plan()
+    assert (n_exp2, status2) == (n_exp, status)
+    if final is not None:
+        assert replay.final.ix_best == final.ix_best
+        assert torch.equal(replay.final.paths_all, final.paths_all)

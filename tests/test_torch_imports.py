@@ -4,8 +4,9 @@ That machine has torch, numpy and scipy but no jax, flax, yaml or msgpack.
 In a fresh interpreter those (and mmd_tpu) are blocked with a meta-path
 finder that raises; then every module of mmd_torch is imported, and
 chip_smoke.py's CPU-reachable setup runs: the readers, load_checkpoint on
-the CPU, a short plan, a short 2-robot PP team plan and a short 2-robot
-XECBS search. chip_smoke.py itself must exit non-zero and print
+the CPU, a short plan, a short 2-robot PP team plan, a short 2-robot
+XECBS search and, on the multi-tile instance, a short 3-tile plan and a
+short XECBS search. chip_smoke.py itself must exit non-zero and print
 no result without a CUDA card, and when it stands alone in a directory.
 """
 import os
@@ -67,6 +68,12 @@ GUARDED = textwrap.dedent("""
     paths, _, status, _ = xecbs.plan()
     assert len(paths) == 2 and paths[0].shape == (64, 4), status
     assert xecbs.timing["plans_fresh"] >= 2
+    trial = cs.load_tiles_trial("XECBS", "cpu")
+    for p in trial.planners:
+        p.cfg = dataclasses.replace(p.cfg, n_samples=2, n_guide_steps=1)
+    assert trial.planners[0]().trajs_final.shape == (2, 3 * 64, 4)
+    trial.team.plan()
+    assert trial.team.timing["plans_fresh"] >= 1
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
