@@ -11,8 +11,9 @@ this file. Phases, one short line each:
    one nvcc per source, all started together, into build/
 3. kernel: the grid-SDF kernel against its plain torch version on the
    EnvConveyor2D and EnvEmptyNoWait2D grids (out-of-range points, points on
-   cell edges, ragged counts, a strided view, and the finalize's (64, 379, 2)
-   interpolated waypoints), which must agree exactly; both timed with CUDA
+   cell edges, ragged counts, a strided view, the finalize's (64, 379, 2)
+   interpolated waypoints and the training summary's (25, 379, 2)), which
+   must agree exactly; both timed with CUDA
    events at the finalize's shape, the one the main path gives it
 4. collision: the collision-guide kernel against its plain version (the
    guide's autograd code, on the card, over the plain torch lookup) on both
@@ -76,12 +77,37 @@ this file. Phases, one short line each:
    kernels routed to their plain versions, which must be exact. Then PP
    on the same team (its status printed, not held; its warm-up's syncs held
    as XECBS's) with 280 collision guides and 3 lookups per plan
-10. one JSON line of kernel numbers (launches: the multi-tile XECBS
-   search's; launches by path: the four plans of phase 5, the team plan of
-   phase 7, the search of phase 8, and phase 9's two plans, search and PP
-   team; ms, plain and bound: the collision guide at phase 9's stacked
-   (3, 64, 64, 4), with phase 4's (64, 64, 4) beside them), then the
-   contract line {"ok": true, "device": {...}}
+10. train: the TemporalUnet diffusion model trained on the card at full
+   width (32 x (1, 2, 4), H=64, D=4, 25 exponential steps) with the recipe
+   of `mmd_torch.train.trainer` (Adam 3e-4, global-norm clip 1.0, EMA 0.995
+   every 10 steps, batch 128). First TRAIN_PARITY_STEPS float32 steps from
+   one seeded init on the card and on the CPU, on the same batches, t and
+   noise drawn on the host, with the EMA reset and then blended
+   (PARITY_EMA), and gradient norms on both sides of the clip's 1.0:
+   losses within TRAIN_PARITY_TOL relative, parameters and EMA within
+   TRAIN_PARITY_TOL absolute; then one bfloat16-compute loss and its
+   gradients on both (BF16_PARITY_LOSS_TOL, BF16_PARITY_COSINE). Then `train` for
+   TRAIN_STEPS float32 steps on EnvEmptyNoWait2D's 10000 trajectories
+   (500 held out, logged every TRAIN_LOG_EVERY) with every chunk between two
+   log points under torch's sync debug mode "error", so that a host wait
+   inside one fails the phase; its logged step-TRAIN_STEPS loss must lie in
+   TRAIN_BAND. Then BF16_TRAIN_STEPS bfloat16-compute steps: finite losses,
+   float32 master parameters. Kernels a step from a profiler trace. Then
+   the sampling summary on the EMA parameters (3 lookups, each run again
+   through the kernel and the plain version on its points, exactly), a checkpoint
+   saved under build/ and loaded back (the EMA weights exactly), and one
+   full-width MPD plan with the loaded model, which must launch the
+   collision guide 280 times and the lookup once. It prints the logged and
+   validation losses, ms a step (CUDA events) and steps a second of both
+   precisions, kernels a step, the summary and the plan
+11. one JSON line of kernel numbers (launches: the train phase's summary
+   and plan; launches by path: the four plans of phase 5, the team plan of
+   phase 7, the search of phase 8, phase 9's two plans, search and PP team,
+   and phase 10's; ms, plain and bound: the collision guide at phase 9's
+   stacked (3, 64, 64, 4), with phase 4's (64, 64, 4) beside them;
+   `launch_floor_us`: the device time of a 1-element `fill_` from a
+   profiler trace, the least a launch costs), then the contract line
+   {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
 DEADLINE_S seconds does the same. Without a CUDA device it exits non-zero
@@ -121,6 +147,7 @@ COLLISION_TOL = 0.0
 REPLAY_TOL = 0.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FINALIZE_SHAPE = (64, 379)  # classification points: B=64 x (63 x 6 + 1)
+SUMMARY_SHAPE = (25, 379)   # the training summary's: 25 samples x (63 x 6 + 1)
 GUIDE_SHAPE = (64, 64, 4)   # one guide call: B=64 x H=64 waypoints
 NOWAIT_PAIRS = (0, 3, 6)   # of the 10-agent circle (multi_agent_utils.py:82-90)
 CONVEYOR_TASK = ((-0.8, 0.0), (0.8, 0.0))  # straight through the centre box
@@ -138,6 +165,34 @@ STACKED_ENVS = ("EnvConveyor2D", "EnvHighways2D", "EnvEmptyNoWait2D")
 # trajectories: unnormalizing and normalizing again rounds by a few float32
 # ulps of 1 (~1e-7).
 SEAM_TOL = 1e-6
+TRAIN_SEED = 18  # the JAX trainer's default seed, which the committed model used
+TRAIN_STEPS, TRAIN_LOG_EVERY, BF16_TRAIN_STEPS = 2000, 1000, 200
+# The card-against-CPU steps run the recipe with the EMA reset every 2
+# steps before step 5 and blended from then on, so that 12 steps cross
+# both of its branches (the recipe's first EMA update is at step 10).
+TRAIN_PARITY_STEPS = 12
+PARITY_EMA = {"step_start_ema": 5, "update_ema_every": 2}
+# The card's train steps against the CPU's: cuDNN and the CPU sum the
+# convolutions in other orders, and Adam divides the gradients' rounding
+# differences by their own scale; a step of lr 3e-4 moves a parameter by
+# about 3e-4. Measured on the H100 over 3 steps of the recipe: losses
+# 9.2e-8 relative, parameters 6.7e-6 absolute. Parameters and EMA are held
+# within it absolutely, losses relatively.
+TRAIN_PARITY_TOL = 1e-4
+# One bfloat16-compute loss and its gradients, card against CPU on the same
+# parameters and draws: each rounds every conv and dense output to bf16's 8
+# significant bits, in its own summation order. Held as the port's bf16 step
+# is held against JAX's on the CPU (tests/test_torch_train.py): the loss
+# within 1e-2 relative, the gradients' cosine at least 0.999.
+BF16_PARITY_LOSS_TOL, BF16_PARITY_COSINE = 1e-2, 0.999
+# The logged loss at step 2000 (the mean over steps 1001-2000) of the JAX
+# package's train() on this recipe and data: the committed history
+# (data_trained_models/EnvEmptyNoWait2D-RobotPlanarDisk/train_losses.npy)
+# and tools/jax_train_band.py at seeds 0, 1 and 2 on the CPU (JAX 0.9.0).
+# The port's must lie within [0.8 x their least, 1.2 x their most].
+JAX_STEP2000_LOSSES = (0.0749758333, 0.0692303479, 0.0693059564, 0.0697581619)
+TRAIN_BAND = (0.8 * min(JAX_STEP2000_LOSSES), 1.2 * max(JAX_STEP2000_LOSSES))
+TRAIN_MODELS = os.path.join(ROOT, "build", "chip_smoke_train")  # gitignored
 
 _phase = ["start"]
 
@@ -271,6 +326,8 @@ def main() -> int:
         cases = {n: torch.from_numpy(kernel_points(n, scene.grid, n)).to(dev)
                  for n in (n_final, 65536, 4032, 999)}
         cases["guide view"] = batch.reshape(64, 64, 4)[:, 1:, :2]  # a strided view
+        cases["summary"] = torch.from_numpy(kernel_points(
+            SUMMARY_SHAPE[0] * SUMMARY_SHAPE[1], scene.grid, 25)).to(dev).reshape(*SUMMARY_SHAPE, 2)
         for case, pts in cases.items():
             got = grid_lookup_cuda(pts, tables, scene.grid.lower, scene.grid.upper)
             want = grid_lookup_plain(pts, tables, scene.grid.lower, scene.grid.upper)
@@ -282,7 +339,7 @@ def main() -> int:
                                        f"max abs err {err}")
                 lookup_err = max(lookup_err, err)
         print(f"kernel: {env_name} lookup equal to plain at {n_final}/65536/4032/999 "
-              f"points and a strided (64, 63, 2) view")
+              f"points, a strided (64, 63, 2) view and the summary's {SUMMARY_SHAPE + (2,)}")
 
     scene = make_env("EnvConveyor2D", dev).scene
     tables = [(scene.grid.values, scene.grid.grads),
@@ -482,19 +539,27 @@ def main() -> int:
     phase("tiles")
     tiles = run_tiles_phase(dev, plain_lookup)
 
+    phase("train")
+    trained = run_train_phase(dev, guide_calls)
+
     phase("report")
+    floor_us = launch_floor_us()
+    print(f"report: launch floor (a 1-element fill_) {floor_us:.4f} us on the device")
 
     def launches(name):
         by_path = {"slice": main_launches[name], "team": team_launches[name],
                    "xecbs": cbs["launches"][name]}
         by_path.update({k: v[name] for k, v in tiles["launches"].items()})
-        return {"launches": tiles["launches"]["tiles_xecbs"][name], "launches_by_path": by_path}
+        by_path["train"] = trained["launches"][name]
+        return {"launches": trained["launches"][name], "launches_by_path": by_path,
+                "launch_floor_us": floor_us}
 
     stacked = tiles["kernel"]
     kernels = [{
         "name": "grid_sdf_lookup", "route": "cuda", "source": "mmd_torch/csrc/grid_sdf.cu",
         "replaces": sdf_kernel.REPLACES, **launches("grid_sdf_lookup"),
-        "max_abs_err": lookup_err, "ms": lookup_ms, "plain_ms": lookup_plain_ms,
+        "max_abs_err": max(lookup_err, trained["lookup_err"]), "ms": lookup_ms,
+        "plain_ms": lookup_plain_ms,
         "bound_ms": lookup_bound_ms, "bound_by": "bytes", "library_ms": None,
     }, {
         "name": "collision_guide", "route": "cuda",
@@ -510,6 +575,7 @@ def main() -> int:
                                "agent_s": timing.get("agent_s"), "status": str(status),
                                "conflicts": n_conflicts},
                       "xecbs": cbs["summary"], "tiles": tiles["summary"],
+                      "train": trained["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3)}))
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
@@ -835,6 +901,268 @@ def run_tiles_phase(dev, plain_lookup):
     summary["pp"] = measured(search("PP"), "PP")
     print(f"tiles: PP status {summary['pp']['status']} (reported, not held)")
     return {"kernel": kernel, "launches": launches, "summary": summary}
+
+
+def launch_floor_us(n: int = 200) -> float:
+    """The mean device time of a 1-element `fill_`, from a profiler trace:
+    what one launch costs the device at the least. The trace may drop a
+    few of the n events (194 of 200 on the H100), so the mean is over
+    those it shows."""
+    import torch
+
+    from mmd_torch.tools.profile_plan import _traced
+
+    x = torch.zeros(1, device="cuda")
+    x.fill_(0.0)
+    _, events = _traced(lambda: [x.fill_(1.0) for _ in range(n)], host=False)
+    fills = [e.time_range.elapsed_us() for e in events if "fill" in e.name.lower()]
+    if len(fills) < n // 2:
+        raise RuntimeError(f"the trace shows {len(fills)} fill kernels of {n}")
+    return sum(fills) / len(fills)
+
+
+def train_parity(dev: str, dataset, cfg=None, n_steps: int = TRAIN_PARITY_STEPS,
+                 unet_dim: int = 32):
+    """n_steps float32 train steps from one seeded init on `dev` and on the
+    CPU, on the same batches, t and noise drawn on the host, by `cfg`
+    (default: the recipe with PARITY_EMA, whose EMA is reset every 2 steps
+    before step 5 and blended from then on). Then one bfloat16-compute
+    loss and its gradients on both devices, from the CPU's parameters.
+    Returns (a dict of the differences and the CPU's global gradient norm
+    at each step, which says on which side of the clip each step fell;
+    the device's state; its model)."""
+    import copy
+
+    import torch
+
+    from mmd_torch.models.diffusion import HardConds, diffusion_loss
+    from mmd_torch.models.schedules import make_schedule
+    from mmd_torch.models.temporal_unet import Bf16Forward, init_unet
+    from mmd_torch.train import trainer
+
+    cfg = cfg or trainer.TrainConfig(**PARITY_EMA)
+    host = torch.Generator().manual_seed(TRAIN_SEED)
+    cpu_model = init_unet(host, state_dim=dataset.state_dim, unet_input_dim=unet_dim,
+                          device="cpu")
+    dev_model = copy.deepcopy(cpu_model).to(dev)
+    data = dataset.trajs_normalized.cpu()
+    mask = dataset.train_mask.cpu()
+    runs = [(where, trainer.TrainState.create(model),
+             make_schedule(cfg.variance_schedule, cfg.n_diffusion_steps, device=where))
+            for where, model in (("cpu", cpu_model), (dev, dev_model))]
+
+    def draws():
+        idx = torch.randint(0, data.shape[0], (cfg.batch_size,), generator=host)
+        t = torch.randint(0, cfg.n_diffusion_steps, (cfg.batch_size,), generator=host)
+        return data[idx], t, torch.randn((cfg.batch_size, *data.shape[1:]), generator=host)
+
+    def loss_and_grads(forward, params, schedule, where, batch, t, noise):
+        b = batch.to(where)
+        loss = diffusion_loss(forward, schedule, b, HardConds(mask=mask.to(where), values=b),
+                              t.to(where), noise.to(where))
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    loss_err, norms = 0.0, []
+    for _ in range(n_steps):
+        batch, t, noise = draws()
+        out = [loss_and_grads(state.model, state.params, schedule, where, batch, t, noise)
+               for where, state, schedule in runs]
+        norms.append(float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(out[0][1])))))
+        for (_, state, _), (_, grads) in zip(runs, out):
+            trainer.apply_gradients(state, grads, cfg)
+        losses = [float(loss) for loss, _ in out]
+        loss_err = max(loss_err, abs(losses[1] - losses[0]) / abs(losses[0]))
+
+    def max_abs(a_model, b_model):
+        return max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(a_model.parameters(), b_model.parameters()))
+
+    with torch.no_grad():
+        param_err = max_abs(dev_model, cpu_model)
+        ema_err = max_abs(runs[1][1].ema, runs[0][1].ema)
+    # One bfloat16 loss and its gradients, both devices on the CPU's parameters.
+    batch, t, noise = draws()
+    bf16 = []
+    for where, _, schedule in runs:
+        model = copy.deepcopy(cpu_model).to(where)
+        loss, grads = loss_and_grads(Bf16Forward(model), list(model.parameters()), schedule,
+                                     where, batch, t, noise)
+        if any(g.dtype != torch.float32 for g in grads):
+            raise RuntimeError(f"bf16 gradients on {where} are not float32")
+        bf16.append((float(loss), torch.cat([g.cpu().reshape(-1) for g in grads]).double()))
+    (l0, g0), (l1, g1) = bf16
+    return {"loss_rel": loss_err, "param_abs": param_err, "ema_abs": ema_err,
+            "grad_norms": norms, "ema_step": runs[1][1].step,
+            "bf16_loss_rel": abs(l1 - l0) / abs(l0),
+            "bf16_grad_cosine": float(g0 @ g1 / (g0.norm() * g1.norm()))}, runs[1][1], dev_model
+
+
+class GuardedChunks:
+    """`trainer.train_chunk` with torch's sync debug mode "error" around
+    each chunk, so that a host wait inside one raises, and each chunk timed
+    by CUDA events and by the host clock (to the chunk's end on the card)."""
+
+    def __init__(self, kept):
+        self.kept, self.steps, self.ms, self.wall_s = kept, 0, 0.0, 0.0
+
+    def __call__(self, state, forward, schedule, cfg, draw, n_steps):
+        import torch
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            out = self.kept(state, forward, schedule, cfg, draw, n_steps)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        end.synchronize()
+        self.wall_s += time.perf_counter() - t0
+        self.ms += start.elapsed_time(end)
+        self.steps += n_steps
+        return out
+
+
+def run_train_phase(dev, guide_calls):
+    """Phase 10 (module docstring): training on the card."""
+    import math
+
+    import torch
+
+    from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
+    from mmd_torch.datasets.trajectories import TrajectoryDataset, model_id
+    from mmd_torch.models.schedules import make_schedule
+    from mmd_torch.models.temporal_unet import Bf16Forward
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops import sdf_kernel
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+    from mmd_torch.planners.single_agent.mpd import load_planner as load
+    from mmd_torch.tools.train_bench import traced_steps
+    from mmd_torch.train import trainer
+    from mmd_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from mmd_torch.train.summary import summary_trajectory_generation
+
+    mid = model_id("EnvEmptyNoWait2D")
+    ds = TrajectoryDataset.load_trajectories(os.path.join(ROOT, "data_trajectories"), mid,
+                                             device=dev)
+    cfg = trainer.TrainConfig()
+    t0 = time.perf_counter()
+    parity, pstate, pmodel = train_parity(dev, ds)
+    print(f"train: {TRAIN_PARITY_STEPS} float32 steps at full width, card against CPU on the "
+          f"same draws in {time.perf_counter() - t0:.2f} s (gradient norms "
+          f"{[round(n, 4) for n in parity['grad_norms']]}, clip {cfg.clip_grad_max_norm}; "
+          f"EMA to step "
+          f"{parity['ema_step']}): losses {parity['loss_rel']:.3e} relative, parameters "
+          f"{parity['param_abs']:.3e} and EMA {parity['ema_abs']:.3e} absolute (tolerance "
+          f"{TRAIN_PARITY_TOL}); one bf16 loss {parity['bf16_loss_rel']:.3e} relative "
+          f"(tolerance {BF16_PARITY_LOSS_TOL}), gradients' cosine "
+          f"{parity['bf16_grad_cosine']:.6f} (at least {BF16_PARITY_COSINE})")
+    if not (parity["loss_rel"] <= TRAIN_PARITY_TOL and parity["param_abs"] <= TRAIN_PARITY_TOL
+            and parity["ema_abs"] <= TRAIN_PARITY_TOL
+            and parity["bf16_loss_rel"] <= BF16_PARITY_LOSS_TOL
+            and parity["bf16_grad_cosine"] >= BF16_PARITY_COSINE):
+        raise RuntimeError(f"card and CPU train steps differ: {parity}")
+    if not min(parity["grad_norms"]) < cfg.clip_grad_max_norm <= max(parity["grad_norms"]):
+        raise RuntimeError(f"the parity's steps did not fall on both sides of the clip: "
+                           f"{parity['grad_norms']}")
+
+    # Kernels a step, on the parity state (5 steps of each precision traced).
+    draw = trainer.StepDrawer(ds, cfg, 0, torch.Generator(device=dev).manual_seed(1))
+    schedule = make_schedule(cfg.variance_schedule, cfg.n_diffusion_steps, device=dev)
+    kernels = {}
+    for name, forward in (("f32", pmodel), ("bf16", Bf16Forward(pmodel))):
+        def step():
+            trainer.train_step(pstate, forward, schedule, cfg, *draw())
+
+        step()
+        kernels[name] = len(traced_steps(step)[2]) / 5
+    print(f"train: kernels a step {kernels['f32']:.1f} (f32), {kernels['bf16']:.1f} (bf16)")
+
+    runs = {}
+    for name, n_steps, log_every, bf16 in (("f32", TRAIN_STEPS, TRAIN_LOG_EVERY, False),
+                                           ("bf16", BF16_TRAIN_STEPS, BF16_TRAIN_STEPS // 2,
+                                            True)):
+        msgs, guard = [], GuardedChunks(trainer.train_chunk)
+        t0 = time.perf_counter()
+        with routed(trainer, "train_chunk", guard):
+            _, state, schedule, losses = trainer.train(
+                ds, trainer.TrainConfig(bf16=bf16), num_train_steps=n_steps, seed=TRAIN_SEED,
+                log_every=log_every, validate_every=log_every, log_fn=msgs.append)
+        torch.cuda.synchronize()
+        vals = [float(m.split()[-1]) for m in msgs if "val_loss" in m]
+        runs[name] = {"steps": guard.steps, "losses": losses, "val_losses": vals,
+                      "ms_per_step": guard.ms / guard.steps,
+                      "steps_per_sec": guard.steps / guard.wall_s,
+                      "wall_s": time.perf_counter() - t0, "kernels_per_step": kernels[name]}
+        print(f"train: {name} {n_steps} steps in {runs[name]['wall_s']:.2f} s (no host sync "
+              f"between log points), logged losses {losses}, validation {vals}, "
+              f"{runs[name]['ms_per_step']:.4f} ms a step (CUDA events), "
+              f"{runs[name]['steps_per_sec']:.3f} steps a second")
+        if guard.steps != n_steps or not all(math.isfinite(v) for _, v in losses):
+            raise RuntimeError(f"{name} run: {guard.steps} guarded steps, losses {losses}")
+        if any(p.dtype != torch.float32 for p in state.model.parameters()):
+            raise RuntimeError(f"{name} run: master parameters are not float32")
+        if name == "f32":
+            f32_state, f32_schedule = state, schedule
+    final = dict(runs["f32"]["losses"])[TRAIN_STEPS]
+    print(f"train: step-{TRAIN_STEPS} loss {final:.5f}, band {TRAIN_BAND[0]:.5f}-"
+          f"{TRAIN_BAND[1]:.5f} (JAX's {JAX_STEP2000_LOSSES}); bf16 "
+          f"{runs['bf16']['ms_per_step']:.4f} ms a step against f32 "
+          f"{runs['f32']['ms_per_step']:.4f}")
+    if not TRAIN_BAND[0] <= final <= TRAIN_BAND[1]:
+        raise RuntimeError(f"step-{TRAIN_STEPS} loss {final} outside {TRAIN_BAND}")
+
+    seen, kernel = [], sdf_kernel.grid_lookup_cuda  # the summary's lookups, held below
+
+    def recorded(points, *args):
+        seen.append((points.clone(), *args))
+        return kernel(points, *args)
+
+    grid_lookup.launches = collision_guide.launches = 0  # train path starts
+    with routed(sdf_kernel, "grid_lookup_cuda", recorded):
+        stats = summary_trajectory_generation(f32_state.ema, f32_schedule, ds,
+                                              torch.Generator(device=dev).manual_seed(0),
+                                              step=TRAIN_STEPS)
+    summary_lookups = grid_lookup.launches
+    model_dir = os.path.join(TRAIN_MODELS, mid)
+    save_checkpoint(model_dir, f32_state, ds, cfg)
+    loaded, _, info = load_checkpoint(model_dir, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
+                                                 f32_state.ema.state_dict().values()))
+    starts, goals = get_start_goal_pos_circle(10)
+    planner = load(TRAIN_MODELS, os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
+                   starts[NOWAIT_PAIRS[0]], goals[NOWAIT_PAIRS[0]], dev)
+    out = planner()
+    launches = {"grid_sdf_lookup": grid_lookup.launches,
+                "collision_guide": collision_guide.launches}  # train path ends
+    print(f"train: summary on the EMA parameters {stats} ({summary_lookups} lookups); "
+          f"checkpoint of step {info['step']} reloaded, EMA weights equal {same}; MPD plan with "
+          f"it in {out.t_total:.3f} s, success {out.success_free_trajs}, fraction_free "
+          f"{out.fraction_free_trajs:.3f} (not held), launches collision "
+          f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']}")
+    lookup_err = 0.0
+    for points, *args in seen:
+        for g, w in zip(kernel(points, *args), sdf_kernel.grid_lookup_plain(points, *args)):
+            lookup_err = max(lookup_err, float((g - w).abs().max()))
+            if not torch.equal(g, w):
+                raise RuntimeError(f"lookup kernel != plain on the summary's "
+                                   f"{tuple(points.shape)} points: max abs err {lookup_err}")
+    print(f"train: the summary's {len(seen)} lookups at {[tuple(p.shape) for p, *_ in seen]} "
+          f"again through the kernel and the plain version: equal")
+    if summary_lookups != 3 or not same or info["step"] != TRAIN_STEPS:
+        raise RuntimeError(f"summary lookups {summary_lookups}, weights equal {same}, "
+                           f"step {info['step']}")
+    if (launches["collision_guide"], launches["grid_sdf_lookup"]) != (guide_calls, 4):
+        raise RuntimeError(f"the trained model's plan launched {launches}, expected "
+                           f"{guide_calls} and 1 (+3 from the summary)")
+    if not torch.isfinite(out.trajs_final).all() or out.trajs_final.shape != (64, 64, 4):
+        raise RuntimeError("the trained model's plan is not finite of the expected shape")
+    summary = dict(runs)
+    summary.update({"parity": parity,
+                    "summary": stats, "plan_s": out.t_total,
+                    "plan_success": out.success_free_trajs, "band": list(TRAIN_BAND)})
+    return {"launches": launches, "lookup_err": lookup_err, "summary": summary}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """mmd_torch: the MMD guided-diffusion planner in PyTorch, for one NVIDIA H100.
 
 A port of `mmd_tpu` with the same module layout. It imports torch, numpy,
-scipy and the standard library only; checkpoints and metadata are read by
-its own readers (`mmd_torch.io`). Entry points run on `cuda` unless the
+scipy and the standard library only; checkpoints and metadata are read and
+written by its own readers and writers (`mmd_torch.io`). Entry points run on `cuda` unless the
 caller passes `device="cpu"`. Ported so far: the single-robot MPD planner
-(`planners.single_agent.mpd`) and prioritized planning of a team
-(`planners.multi_agent.prioritized_planning`). Two hand-written CUDA
+(`planners.single_agent.mpd`), prioritized planning of a team
+(`planners.multi_agent.prioritized_planning`), the CBS-family search
+(`planners.multi_agent.cbs`), multi-tile planning
+(`planners.single_agent.mpd_ensemble`) and training (`train.trainer`,
+with checkpoints both packages read, `train.checkpoint`). Two hand-written CUDA
 kernels run on the card, the collision guide (`csrc/collision_guide.cu`)
 and the grid-SDF lookup (`csrc/grid_sdf.cu`); CPU tensors take their plain
 torch versions.

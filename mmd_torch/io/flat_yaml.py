@@ -1,4 +1,4 @@
-"""A reader for the flat YAML of `args.yaml` and `metadata.yaml`.
+"""A reader and writer for the flat YAML of `args.yaml` and `metadata.yaml`.
 
 Those files are written by `yaml.safe_dump` of a flat dict: each line is
 `key: scalar`, or `key:` followed by `- scalar` lines of a list. This reader
@@ -6,6 +6,11 @@ accepts exactly that and raises `ValueError` on anything else (nesting,
 flow collections, anchors, multi-line strings). Scalars resolve as PyYAML's
 safe loader resolves them for the forms these files hold: null, bool, int,
 float (YAML 1.1: a dot is required, an exponent needs its sign) and str.
+
+`dumps` writes a flat dict of such scalars and non-empty lists of them as
+`yaml.safe_dump` does: keys sorted, list items as `- ` lines under their
+key, floats as `repr` with `.0` put before a bare exponent, and a string
+that would read back as another type single-quoted.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ _NAN = re.compile(r"^\.(nan|NaN|NAN)$")
 _KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*):(?: (.*))?$")
 _ITEM = re.compile(r"^- (.*)$")
 _SPECIAL = set("[]{}&*!|>%@`#")
+_PLAIN = re.compile(r"^[A-Za-z_][A-Za-z0-9_.-]*$")
 
 
 def parse_scalar(text: str) -> Any:
@@ -86,3 +92,49 @@ def loads(text: str) -> Dict[str, Any]:
 def load_flat_yaml(path: str) -> Dict[str, Any]:
     with open(path) as f:
         return loads(f.read())
+
+
+def dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if value is True or value is False:
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text
+    if isinstance(value, str):
+        if _PLAIN.match(value) and parse_scalar(value) == value:
+            return value
+        if "\n" in value:
+            raise ValueError(f"flat yaml: multi-line strings are not supported: {value!r}")
+        return "'" + value.replace("'", "''") + "'"
+    raise ValueError(f"flat yaml: unsupported value {value!r}")
+
+
+def dumps(data: Dict[str, Any]) -> str:
+    lines = []
+    for key in sorted(data):
+        if not _KEY.match(f"{key}:"):
+            raise ValueError(f"flat yaml: unsupported key {key!r}")
+        value = data[key]
+        if isinstance(value, (list, tuple)):
+            if not value:
+                raise ValueError(f"flat yaml: empty list under {key!r}")
+            lines.append(f"{key}:")
+            lines.extend(f"- {dump_scalar(v)}" for v in value)
+        else:
+            lines.append(f"{key}: {dump_scalar(value)}")
+    return "".join(line + "\n" for line in lines)
+
+
+def save_flat_yaml(path: str, data: Dict[str, Any]):
+    with open(path, "w") as f:
+        f.write(dumps(data))

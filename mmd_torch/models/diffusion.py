@@ -20,6 +20,9 @@ for fresh plans and XCBS's warm-started local inference. Semantics:
 Noise is injectable: `SamplerNoise` holds the loop's first draw (x_T of a
 fresh loop, the q-sample noise of a warm-started one) and one normal draw
 per step; without it, draws come from the caller's `torch.Generator`.
+
+`diffusion_loss` is the training loss (diffusion_model_base.py:435-456),
+its t and noise arguments, drawn by `draw_loss_noise`.
 """
 from __future__ import annotations
 
@@ -199,3 +202,26 @@ def run_local_inference(model: nn.Module, schedule: DiffusionSchedule, hard: Har
                                     guide_cfg=guide_cfg,
                                     n_diffusion_steps=n_denoising_steps, warm_start=warm)
     return chain
+
+
+# ---------------------------------------------------------------- training
+def draw_loss_noise(generator: torch.Generator, x_start: torch.Tensor,
+                    n_diffusion_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A loss's draws on the generator's device: t (B,) uniform in
+    [0, n_diffusion_steps), and the noise, normal like x_start."""
+    t = torch.randint(0, n_diffusion_steps, (x_start.shape[0],), generator=generator,
+                      device=x_start.device)
+    noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                        dtype=x_start.dtype)
+    return t, noise
+
+
+def diffusion_loss(model, schedule: DiffusionSchedule, x_start: torch.Tensor,
+                   hard: HardConds, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Epsilon-prediction MSE with the hard conditions applied to the noisy
+    input AND to the model's output, so the conditioned rows carry no
+    gradient (`mmd_tpu/models/diffusion.py:282-296`, p_losses in
+    diffusion_model_base.py:435-456)."""
+    x_noisy = hard.apply(q_sample(schedule, x_start, t, noise))
+    eps_hat = hard.apply(model(x_noisy, t))
+    return torch.mean((eps_hat - noise) ** 2)

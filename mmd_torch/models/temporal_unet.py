@@ -8,7 +8,7 @@ convolutions run in torch's (B, C, H) layout.
 
 `convert_flax_params` maps a flax parameter tree (nested dicts of numpy
 arrays, as `mmd_torch.io.msgpack` reads them) onto this module's
-state_dict:
+state_dict, and `to_flax_params` maps it back:
 - Conv kernels are (k, in, out) in flax and (out, in, k) in torch; Dense
   kernels are (in, out) in flax and (out, in) in torch.
 - flax GroupNorm uses eps 1e-6 (torch's default is 1e-5).
@@ -29,13 +29,17 @@ flax's ops round:
   log1p(exp(-|x|)), each op rounded to bfloat16;
 - the sinusoidal embedding is float32, and the result is handed back in
   the caller's dtype.
+`Bf16Forward` runs that forward over the float32 model's own parameters,
+for training.
+
+`init_unet` draws flax's default initializers.
 """
 from __future__ import annotations
 
 import copy
 import math
 import weakref
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -218,8 +222,85 @@ def bf16_model(model: TemporalUnet) -> Bf16Unet:
     return _BF16_TWINS[model]
 
 
+class Bf16Forward:
+    """The bfloat16-compute forward over a float32 TemporalUnet's own
+    parameters, for training: JAX's `model.clone(dtype=bfloat16).apply(
+    params_f32)` (`mmd_tpu/train/trainer.py:213-214`). Each call casts the
+    float32 parameters to what `Bf16Unet` holds (bfloat16, GroupNorm's kept
+    float32) and runs `Bf16Unet`'s forward on them by
+    `torch.func.functional_call`, so it rounds where the inference twin
+    rounds, and the gradients come back float32 through the casts to the
+    model's own parameters."""
+
+    def __init__(self, model: TemporalUnet):
+        self.model = model
+        self.twin = Bf16Unet(model)
+        own = list(model.named_parameters())
+        twin = list(self.twin.named_parameters())
+        if [p.shape for _, p in own] != [p.shape for _, p in twin]:
+            raise ValueError("the bfloat16 twin's parameters do not follow the model's")
+        self._names = [(t_name, m_name, t.dtype)
+                       for (t_name, t), (m_name, _) in zip(twin, own)]
+
+    def __call__(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+        own = dict(self.model.named_parameters())
+        cast = {t_name: own[m_name].to(dtype) for t_name, m_name, dtype in self._names}
+        return torch.func.functional_call(self.twin, cast, (x, time))
+
+
 # ------------------------------------------------------------- conversion
-def _conv(w: np.ndarray) -> np.ndarray:      # (k, in, out) -> (out, in, k)
+# A flax TemporalUnet's parameter tree and this module's state_dict hold the
+# same leaves. Flax names submodules by creation order:
+# ResidualTemporalBlock_0.. run down (two per level), mid (two), then up
+# (two per level above the bottom); Downsample1d_i and Upsample1d_i in order.
+# A residual block has a 1x1 `Conv_0` only where its channels change.
+def _param_map(n_levels: int, has_res: Callable[[int, str], bool]
+               ) -> List[Tuple[Tuple[str, ...], str, str]]:
+    """[(flax path under "params", state_dict name, layout)], layout one of
+    "conv" ((k, in, out) <-> (out, in, k)), "conv_t" (the transposed conv,
+    flipped in k), "dense" ((in, out) <-> (out, in)) and "same"."""
+    out = []
+
+    def layer(path, name, layout):
+        out.append((path + ("kernel",), f"{name}.weight", layout))
+        out.append((path + ("bias",), f"{name}.bias", "same"))
+
+    def conv_block(path, prefix):
+        layer(path + ("Conv_0",), f"{prefix}.conv", "conv")
+        out.append((path + ("GroupNorm_0", "scale"), f"{prefix}.norm.weight", "same"))
+        out.append((path + ("GroupNorm_0", "bias"), f"{prefix}.norm.bias", "same"))
+
+    def res_block(r, prefix):
+        path = (f"ResidualTemporalBlock_{r}",)
+        conv_block(path + ("Conv1dBlock_0",), f"{prefix}.block0")
+        conv_block(path + ("Conv1dBlock_1",), f"{prefix}.block1")
+        layer(path + ("Dense_0",), f"{prefix}.time", "dense")
+        if has_res(r, prefix):
+            layer(path + ("Conv_0",), f"{prefix}.res", "conv")
+
+    for i in range(2):
+        layer(("TimeEncoder_0", f"Dense_{i}"), f"time_mlp.dense{i}", "dense")
+    r = 0
+    for lvl in range(n_levels):
+        for k in range(2):
+            res_block(r, f"downs.{lvl}.{k}")
+            r += 1
+        if lvl < n_levels - 1:
+            layer((f"Downsample1d_{lvl}", "Conv_0"), f"downs.{lvl}.2", "conv")
+    for k in range(2):
+        res_block(r, f"mid{k}")
+        r += 1
+    for lvl in range(n_levels - 1):
+        for k in range(2):
+            res_block(r, f"ups.{lvl}.{k}")
+            r += 1
+        layer((f"Upsample1d_{lvl}", "ConvTranspose_0"), f"ups.{lvl}.2", "conv_t")
+    conv_block(("Conv1dBlock_0",), "final_block")
+    layer(("Conv_0",), "final_conv", "conv")
+    return out
+
+
+def _conv(w: np.ndarray) -> np.ndarray:      # (k, in, out) <-> (out, in, k)
     return np.ascontiguousarray(w.transpose(2, 1, 0))
 
 
@@ -227,61 +308,100 @@ def _conv_t(w: np.ndarray) -> np.ndarray:    # (k, in, out) -> (in, out, k), fli
     return np.ascontiguousarray(w.transpose(1, 2, 0)[:, :, ::-1])
 
 
-def _dense(w: np.ndarray) -> np.ndarray:     # (in, out) -> (out, in)
+def _conv_t_inverse(w: np.ndarray) -> np.ndarray:  # (in, out, k) flipped -> (k, in, out)
+    return np.ascontiguousarray(w[:, :, ::-1].transpose(2, 0, 1))
+
+
+def _dense(w: np.ndarray) -> np.ndarray:     # (in, out) <-> (out, in)
     return np.ascontiguousarray(w.T)
 
 
-def _conv_block(sd: Dict, prefix: str, p: Dict):
-    sd[f"{prefix}.conv.weight"] = _conv(p["Conv_0"]["kernel"])
-    sd[f"{prefix}.conv.bias"] = p["Conv_0"]["bias"]
-    sd[f"{prefix}.norm.weight"] = p["GroupNorm_0"]["scale"]
-    sd[f"{prefix}.norm.bias"] = p["GroupNorm_0"]["bias"]
+_TO_TORCH = {"conv": _conv, "conv_t": _conv_t, "dense": _dense, "same": np.asarray}
+_TO_FLAX = {"conv": _conv, "conv_t": _conv_t_inverse, "dense": _dense, "same": np.asarray}
 
 
-def _res_block(sd: Dict, prefix: str, p: Dict):
-    _conv_block(sd, f"{prefix}.block0", p["Conv1dBlock_0"])
-    _conv_block(sd, f"{prefix}.block1", p["Conv1dBlock_1"])
-    sd[f"{prefix}.time.weight"] = _dense(p["Dense_0"]["kernel"])
-    sd[f"{prefix}.time.bias"] = p["Dense_0"]["bias"]
-    if "Conv_0" in p:
-        sd[f"{prefix}.res.weight"] = _conv(p["Conv_0"]["kernel"])
-        sd[f"{prefix}.res.bias"] = p["Conv_0"]["bias"]
+def _get(tree: Dict, path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
 
 
 def convert_flax_params(tree: Dict, n_levels: int = 3) -> Dict[str, torch.Tensor]:
     """Flax TemporalUnet parameters -> a state_dict of `TemporalUnet`.
 
     `tree` is the restored msgpack ({"params": {...}} or the inner dict).
-    Flax names submodules by creation order: ResidualTemporalBlock_0.. run
-    down (two per level), mid (two), then up (two per level above the
-    bottom); Downsample1d_i and Upsample1d_i in order.
     """
     p = tree.get("params", tree)
-    sd: Dict[str, np.ndarray] = {}
-    te = p["TimeEncoder_0"]
-    for i in range(2):
-        sd[f"time_mlp.dense{i}.weight"] = _dense(te[f"Dense_{i}"]["kernel"])
-        sd[f"time_mlp.dense{i}.bias"] = te[f"Dense_{i}"]["bias"]
-    r = 0
-    for lvl in range(n_levels):
-        for k in range(2):
-            _res_block(sd, f"downs.{lvl}.{k}", p[f"ResidualTemporalBlock_{r}"])
-            r += 1
-        if lvl < n_levels - 1:
-            conv = p[f"Downsample1d_{lvl}"]["Conv_0"]
-            sd[f"downs.{lvl}.2.weight"] = _conv(conv["kernel"])
-            sd[f"downs.{lvl}.2.bias"] = conv["bias"]
-    for k in range(2):
-        _res_block(sd, f"mid{k}", p[f"ResidualTemporalBlock_{r}"])
-        r += 1
-    for lvl in range(n_levels - 1):
-        for k in range(2):
-            _res_block(sd, f"ups.{lvl}.{k}", p[f"ResidualTemporalBlock_{r}"])
-            r += 1
-        conv = p[f"Upsample1d_{lvl}"]["ConvTranspose_0"]
-        sd[f"ups.{lvl}.2.weight"] = _conv_t(conv["kernel"])
-        sd[f"ups.{lvl}.2.bias"] = conv["bias"]
-    _conv_block(sd, "final_block", p["Conv1dBlock_0"])
-    sd["final_conv.weight"] = _conv(p["Conv_0"]["kernel"])
-    sd["final_conv.bias"] = p["Conv_0"]["bias"]
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    has_res = lambda r, prefix: "Conv_0" in p[f"ResidualTemporalBlock_{r}"]  # noqa: E731
+    return {name: torch.from_numpy(np.array(_TO_TORCH[layout](_get(p, path)), np.float32))
+            for path, name, layout in _param_map(n_levels, has_res)}
+
+
+def _sorted_tree(tree: Dict) -> Dict:
+    """Keys in sorted order at every level, as flax's checkpoints hold them."""
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def to_flax_params(state_dict: Dict[str, torch.Tensor], n_levels: int = 3) -> Dict:
+    """The inverse of `convert_flax_params`: a state_dict of `TemporalUnet`
+    -> flax's parameter tree {"params": {...}} of float32 numpy arrays."""
+    has_res = lambda r, prefix: f"{prefix}.res.weight" in state_dict  # noqa: E731
+    tree: Dict = {}
+    for path, name, layout in _param_map(n_levels, has_res):
+        leaf = tree
+        for key in path[:-1]:
+            leaf = leaf.setdefault(key, {})
+        value = state_dict[name].detach().to("cpu", torch.float32).numpy()
+        leaf[path[-1]] = np.array(_TO_FLAX[layout](value), np.float32)
+    return {"params": _sorted_tree(tree)}
+
+
+# ---------------------------------------------------------- initialization
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def truncated_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
+    """Normal draws truncated to [-2 std', 2 std'], std' = std / 0.8796, so
+    that their std is `std`: flax's `lecun_normal` draw (variance_scaling,
+    "truncated_normal"), by the inverse CDF on the generator's uniforms."""
+    lo, hi = (0.5 * (1.0 + math.erf(v / math.sqrt(2.0))) for v in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
+    x = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
+    return (torch.clamp(x, -2.0, 2.0) * (std / _TRUNC_STD)).to(torch.float32)
+
+
+def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default initializers on every layer of `module`, in place:
+    each Linear, Conv1d and ConvTranspose1d weight `lecun_normal` (a
+    truncated normal of variance 1 / fan_in, fan_in = kernel size x input
+    channels, as flax counts it on its (k, in, out) kernel), biases zero,
+    GroupNorm scale 1 and bias 0. Drawn on the host from `generator` (a CPU
+    generator), layer by layer in module order."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
+                w = m.weight
+                if isinstance(m, nn.Linear):
+                    fan_in = w.shape[1]
+                elif isinstance(m, nn.ConvTranspose1d):
+                    fan_in = w.shape[0] * w.shape[2]
+                else:
+                    fan_in = w.shape[1] * w.shape[2]
+                w.copy_(truncated_normal(w.shape, math.sqrt(1.0 / fan_in), generator))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+    return module
+
+
+def init_unet(generator: torch.Generator, state_dim: int = 4, unet_input_dim: int = 32,
+              dim_mults: Tuple[int, ...] = (1, 2, 4), device="cuda") -> TemporalUnet:
+    """A TemporalUnet with flax's default initializers, as the JAX model
+    gets them (`mmd_tpu/models/temporal_unet.py:291-302` sets none; torch's
+    own default, kaiming_uniform, would train along another curve)."""
+    model = TemporalUnet(state_dim=state_dim, unet_input_dim=unet_input_dim,
+                         dim_mults=dim_mults)
+    return flax_default_init_(model, generator).to(device)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from mmd_torch.envs.envs import WS_BOUNDARY_SCALE, Env2D, SceneData, make_env
@@ -57,6 +58,13 @@ def classify_trajs(scene: SceneData, trajs: torch.Tensor, radius: float,
     return coll_free & in_limits, wp_coll
 
 
+def _mean(mask: torch.Tensor) -> float:
+    """The share of True in `mask` as `jnp.mean` computes it in float32: the
+    (exact) count times the float32 reciprocal of the size, so that 9475 of
+    9475 gives 0.99999994 as in the JAX package."""
+    return float(np.float32(mask.sum().item()) * np.float32(1.0 / mask.numel()))
+
+
 class PlanningTask:
     """An environment and a robot, with the collision query the team
     planners ask (tasks.py:22-331)."""
@@ -73,6 +81,27 @@ class PlanningTask:
         """States (..., D) -> (...,) bool: the position in collision with the
         map or its walls, at the robot's radius."""
         return waypoint_in_collision(self.scene, self.robot.get_position(x), self.margin)
+
+    def get_trajs_collision_and_free(self, trajs: torch.Tensor, num_interpolation: int = 5
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(free_mask (B,), waypoint_collisions (B, H_interp)), classified at
+        the robot's radius on the x5 interpolated trajectories."""
+        return classify_trajs(self.scene, trajs, self.robot.radius, self.robot.q_min,
+                              self.robot.q_max, num_interpolation)
+
+    # Statistics over a batch of sampled trajectories (tasks.py:313-331);
+    # each classifies anew and reads its number to the host, as JAX's do.
+    def compute_fraction_free_trajs(self, trajs: torch.Tensor) -> float:
+        free, _ = self.get_trajs_collision_and_free(trajs)
+        return _mean(free)
+
+    def compute_collision_intensity_trajs(self, trajs: torch.Tensor) -> float:
+        _, wp = self.get_trajs_collision_and_free(trajs)
+        return _mean(wp)
+
+    def compute_success_free_trajs(self, trajs: torch.Tensor) -> int:
+        free, _ = self.get_trajs_collision_and_free(trajs)
+        return int(free.any())
 
 
 def make_task(env_name: str, device="cuda") -> PlanningTask:

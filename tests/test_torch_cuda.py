@@ -394,3 +394,56 @@ def test_multi_tile_xecbs_syncs_only_to_read_and_replays_exactly(monkeypatch):
     if final is not None:
         assert replay.final.ix_best == final.ix_best
         assert torch.equal(replay.final.paths_all, final.paths_all)
+
+
+def _train_data(device):
+    from mmd_torch.datasets.trajectories import TrajectoryDataset
+
+    return TrajectoryDataset.load_trajectories(os.path.join(ROOT, "data_trajectories"),
+                                               "EnvEmptyNoWait2D-RobotPlanarDisk", device=device)
+
+
+def test_train_steps_on_the_card_match_the_cpu():
+    """chip_smoke.py's card-against-CPU train steps at full width (12 f32
+    steps across both EMA branches and both sides of the clip, then one
+    bf16 loss and its gradients), held to that script's tolerances."""
+    _need_card()
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parity, state, _ = cs.train_parity("cuda", _train_data("cpu"))
+    assert max(parity["loss_rel"], parity["param_abs"], parity["ema_abs"]) <= cs.TRAIN_PARITY_TOL
+    assert parity["bf16_loss_rel"] <= cs.BF16_PARITY_LOSS_TOL
+    assert parity["bf16_grad_cosine"] >= cs.BF16_PARITY_COSINE
+    assert state.step == cs.TRAIN_PARITY_STEPS
+    assert min(parity["grad_norms"]) < 1.0 <= max(parity["grad_norms"])  # both sides of the clip
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_train_chunk_waits_on_nothing(bf16):
+    _need_card()
+    from mmd_torch.models.schedules import make_schedule
+    from mmd_torch.models.temporal_unet import Bf16Forward, init_unet
+    from mmd_torch.train import trainer
+
+    ds = _train_data("cuda")
+    cfg = trainer.TrainConfig(bf16=bf16)
+    model = init_unet(torch.Generator().manual_seed(0), device="cuda")
+    state = trainer.TrainState.create(model)
+    forward = Bf16Forward(model) if bf16 else model
+    draw = trainer.StepDrawer(ds, cfg, 500, torch.Generator(device="cuda").manual_seed(0))
+    schedule = make_schedule("exponential", 25, device="cuda")
+    trainer.train_chunk(state, forward, schedule, cfg, draw, 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.train_chunk(state, forward, schedule, cfg, draw, 12)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss) and state.step == 14
+    assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -1,13 +1,17 @@
 """The port needs nothing that the GPU machine lacks.
 
-That machine has torch, numpy and scipy but no jax, flax, yaml or msgpack.
-In a fresh interpreter those (and mmd_tpu) are blocked with a meta-path
+That machine has torch, numpy and scipy but no jax, flax, optax, yaml,
+msgpack or matplotlib. In a fresh interpreter those (and mmd_tpu) are blocked with a meta-path
 finder that raises; then every module of mmd_torch is imported, and
 chip_smoke.py's CPU-reachable setup runs: the readers, load_checkpoint on
 the CPU, a short plan, a short 2-robot PP team plan, a short 2-robot
 XECBS search and, on the multi-tile instance, a short 3-tile plan and a
-short XECBS search. chip_smoke.py itself must exit non-zero and print
-no result without a CUDA card, and when it stands alone in a directory.
+short XECBS search; then the training path at a small width: chip_smoke's
+card-against-CPU step parity (here CPU against CPU), `train` with
+validation, a summary and checkpoints, the checkpoint read back, a train
+state resumed, and the training CLI's refusal of a committed model
+directory. chip_smoke.py itself must exit non-zero and print no result
+without a CUDA card, and when it stands alone in a directory.
 """
 import os
 import shutil
@@ -24,7 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GUARDED = textwrap.dedent("""
     import dataclasses, importlib, importlib.util, pkgutil, sys
-    BLOCKED = {"jax", "jaxlib", "flax", "yaml", "msgpack", "mmd_tpu"}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "matplotlib", "mmd_tpu"}
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
@@ -74,6 +78,28 @@ GUARDED = textwrap.dedent("""
     assert trial.planners[0]().trajs_final.shape == (2, 3 * 64, 4)
     trial.team.plan()
     assert trial.team.timing["plans_fresh"] >= 1
+    import os, tempfile
+    from mmd_torch.datasets.trajectories import TrajectoryDataset, model_id
+    from mmd_torch.train import trainer
+    from mmd_torch.train.checkpoint import load_checkpoint
+    from mmd_torch.train.train_diffusion import committed_models_dir
+    ds = TrajectoryDataset.load_trajectories(ROOT + "/data_trajectories",
+                                             model_id("EnvEmptyNoWait2D"), device="cpu")
+    small = TrajectoryDataset.from_trajs(ds.trajs[:64, ::4].numpy(), "EnvEmptyNoWait2D",
+                                         device="cpu")
+    parity, _, _ = cs.train_parity("cpu", small, trainer.TrainConfig(batch_size=8, **cs.PARITY_EMA),
+                                   6, unet_dim=8)
+    assert parity["loss_rel"] == parity["param_abs"] == parity["ema_abs"] == 0.0, parity
+    assert parity["bf16_loss_rel"] == 0.0 and parity["bf16_grad_cosine"] >= 0.999, parity
+    d = os.path.join(tempfile.mkdtemp(), model_id("EnvEmptyNoWait2D"))
+    for bf16, resume in ((False, False), (True, True)):
+        trainer.train(small, trainer.TrainConfig(batch_size=8, bf16=bf16), num_train_steps=4,
+                      unet_dim=8, dim_mults=(1, 2), model_dir=d, log_every=2,
+                      validate_every=2, summary_every=4, steps_til_checkpoint=2,
+                      log_fn=lambda m: None, resume=resume)
+    model, _, info = load_checkpoint(d, device="cpu")
+    assert info["step"] == 8, info
+    assert committed_models_dir(ROOT + "/data_trained_models_vd") and not committed_models_dir(d)
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")

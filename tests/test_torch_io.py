@@ -1,9 +1,12 @@
-"""The port's own file readers against the libraries the JAX package uses.
+"""The port's own file readers and writers against the libraries the JAX
+package uses.
 
 The msgpack reader is held to `flax.serialization.msgpack_restore` on every
 checkpoint of the repository, and the flat YAML reader to `yaml.safe_load`
 on every args.yaml and metadata.yaml: exact equality, since both only
-decode bytes.
+decode bytes. The writers are held to the same files: the msgpack writer
+must give back each checkpoint's bytes from what the reader read (and
+flax's `to_bytes` bytes), and the YAML writer `yaml.safe_dump`'s text.
 """
 import glob
 import os
@@ -15,8 +18,8 @@ import torch
 import yaml
 from flax import serialization
 
-from mmd_torch.io.flat_yaml import load_flat_yaml, loads
-from mmd_torch.io.msgpack import load_msgpack, unpackb
+from mmd_torch.io.flat_yaml import dumps, load_flat_yaml, loads, save_flat_yaml
+from mmd_torch.io.msgpack import load_msgpack, packb, save_msgpack, unpackb
 
 torch.set_num_threads(1)
 
@@ -109,3 +112,68 @@ def test_flat_yaml_scalars_match_pyyaml():
 def test_flat_yaml_reader_rejects_other_yaml(text):
     with pytest.raises(ValueError):
         loads(text)
+
+
+@pytest.mark.parametrize("path", CHECKPOINTS, ids=_rel)
+def test_msgpack_writer_gives_back_each_checkpoint(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    tree = load_msgpack(path)
+    assert packb(tree) == data
+    assert packb(tree) == serialization.to_bytes(tree)
+
+
+@pytest.mark.parametrize("value", [
+    0, 127, 128, 255, 256, 65535, 65536, 2 ** 32, -1, -32, -33, -128, -129, -2 ** 15 - 1,
+    -2 ** 31 - 1, 1.5, -0.0, "x" * 31, "x" * 32, "y" * 300, "z" * 70000, b"q" * 5, [1] * 15,
+    [1] * 16, {str(i): i for i in range(20)}, None, True, False, {"a": {}},
+    np.asarray(7, np.int32), np.zeros((0, 3), np.float32), np.arange(70000, dtype=np.float32),
+    np.ones((2, 3), np.float64)], ids=lambda v: type(v).__name__)
+def test_msgpack_writer_matches_flax_on_each_type(value):
+    import msgpack
+
+    if isinstance(value, np.ndarray):
+        assert packb({"v": value}) == serialization.msgpack_serialize({"v": value})
+        np.testing.assert_array_equal(unpackb(packb(value)), value)
+    else:
+        assert packb(value) == msgpack.packb(value, use_bin_type=True)
+
+
+@pytest.mark.parametrize("value", [{1: 2}, np.zeros(2, dtype=object), object(), 2 ** 64])
+def test_msgpack_writer_refuses_what_flax_would_not_write(value):
+    with pytest.raises(ValueError):
+        packb(value)
+
+
+def test_save_msgpack_round_trips_through_flax(tmp_path):
+    tree = {"params": {"b": np.arange(6, dtype=np.float32).reshape(2, 3), "a": {}},
+            "step": np.asarray(3, np.int32)}
+    save_msgpack(str(tmp_path / "t.msgpack"), tree)
+    with open(tmp_path / "t.msgpack", "rb") as f:
+        back = serialization.msgpack_restore(f.read())
+    assert list(back) == ["params", "step"] and int(back["step"]) == 3
+    np.testing.assert_array_equal(back["params"]["b"], tree["params"]["b"])
+
+
+@pytest.mark.parametrize("path", YAMLS, ids=_rel)
+def test_flat_yaml_writer_matches_pyyaml(path):
+    with open(path) as f:
+        data = yaml.safe_load(f)
+    assert dumps(data) == yaml.safe_dump(data)
+
+
+def test_flat_yaml_writer_reads_back_as_the_same_dict(tmp_path):
+    data = {"a": 1e-5, "b": 1e17, "c": "true", "d": "1.5", "e": "it's", "f": [1.5, -2, "x y"],
+            "g": None, "h": False, "i": float("inf"), "j": "null", "k": "EnvX-Robot",
+            "l": -0.031116127967834473}
+    save_flat_yaml(str(tmp_path / "a.yaml"), data)
+    with open(tmp_path / "a.yaml") as f:
+        text = f.read()
+    assert yaml.safe_load(text) == data and loads(text) == data
+
+
+@pytest.mark.parametrize("data", [{"a": []}, {"a": {"b": 1}}, {"a": "two\nlines"},
+                                  {"not a key": 1}])
+def test_flat_yaml_writer_refuses_what_the_reader_cannot_read(data):
+    with pytest.raises(ValueError):
+        dumps(data)
