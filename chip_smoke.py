@@ -12,8 +12,10 @@ this file. Phases, one short line each:
 3. kernel: the grid-SDF kernel against its plain torch version on the
    EnvConveyor2D and EnvEmptyNoWait2D grids (out-of-range points, points on
    cell edges, ragged counts, a strided view, the finalize's (64, 379, 2)
-   interpolated waypoints and the training summary's (25, 379, 2)), which
-   must agree exactly; both timed with CUDA
+   interpolated waypoints, the training summary's (25, 379, 2), the task
+   sampler's 1024 and 2048 candidates, a generated context's (20, 379, 2)
+   and the linear data's (500, 379, 2)), which must agree exactly; both
+   timed with CUDA
    events at the finalize's shape, the one the main path gives it
 4. collision: the collision-guide kernel against its plain version (the
    guide's autograd code, on the card, over the plain torch lookup) on both
@@ -100,13 +102,38 @@ this file. Phases, one short line each:
    collision guide 280 times and the lookup once. It prints the logged and
    validation losses, ms a step (CUDA events) and steps a second of both
    precisions, kernels a step, the summary and the plan
-11. one JSON line of kernel numbers (launches: the train phase's summary
-   and plan; launches by path: the four plans of phase 5, the team plan of
+12. eval (run after phase 10, before the report): `evaluate` of
+   `mmd_torch.tools.eval_model` at full width (B=64, 25+1 DDPM steps),
+   EVAL_TASKS tasks on each of the five maps in float32, then EVAL_TASKS
+   EnvConveyor2D tasks with the bfloat16 UNet and EVAL_TASKS in float32
+   DDIM. Each float32 DDPM row must succeed on every task and lie within
+   EVAL_FREE_BAND (fraction-free) and EVAL_ADHERENCE_BAND (adherence) below
+   MODEL_EVAL.yaml's JAX row; the bf16 and DDIM rows are printed beside
+   JAX's. Every plan must launch the collision guide 280 times (60 for DDIM:
+   3 guided substeps x 20) and the lookup once. Then the first DDIM plan
+   again on the card with both kernels routed to their plain versions (its
+   generator state restored), which must agree within REPLAY_TOL
+13. datagen: `generate_context_trajectories` (native RRT required, 20
+   trajectories, H=64, 300 GPMP2 iterations) for DATAGEN_CONTEXTS contexts
+   of EnvConveyor2D (skills, RRT*) and of EnvHighways2D (corner gating),
+   after one warm-up context. GPMP2 runs under torch's sync debug mode
+   "error", so a host wait inside its loop fails the phase; each context
+   must launch the lookup once per iteration and once more (the
+   classification), and the contexts must launch no collision guide. It prints each context's keep rate, wall seconds, its
+   host RRT and spline seconds and GPMP2's device time (CUDA events). The
+   last context's GPMP2 runs again with the plain lookup, which must agree
+   exactly (NaN where a factor failed, in both), and once more under the
+   profiler (kernels an iteration, device busy time and idle share, the
+   kernels with the most device time). Then EnvEmptyNoWait2D's
+   linear data at DATAGEN_LINEAR contexts, saved under build/ and read back
+   by `TrajectoryDataset.load_trajectories`, equal
+11. one JSON line of kernel numbers (launches: this slice's path, phases 12
+   and 13; launches by path: the four plans of phase 5, the team plan of
    phase 7, the search of phase 8, phase 9's two plans, search and PP team,
-   and phase 10's; ms, plain and bound: the collision guide at phase 9's
-   stacked (3, 64, 64, 4), with phase 4's (64, 64, 4) beside them;
-   `launch_floor_us`: the device time of a 1-element `fill_` from a
-   profiler trace, the least a launch costs), then the contract line
+   phase 10's, and phases 12 and 13's; ms, plain and bound: the collision
+   guide at phase 9's stacked (3, 64, 64, 4), with phase 4's (64, 64, 4)
+   beside them; `launch_floor_us`: the device time of a 1-element `fill_`
+   from a profiler trace, the least a launch costs), then the contract line
    {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
@@ -148,6 +175,11 @@ REPLAY_TOL = 0.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FINALIZE_SHAPE = (64, 379)  # classification points: B=64 x (63 x 6 + 1)
 SUMMARY_SHAPE = (25, 379)   # the training summary's: 25 samples x (63 x 6 + 1)
+CONTEXT_SHAPE = (20, 379)   # a generated context's classification: 20 trajectories
+LINEAR_SHAPE = (500, 379)   # the linear data's classification: 500 contexts
+# random_coll_free_q's candidates: an evaluation task's start and goal, and
+# the 500 linear contexts' 1000 starts and goals.
+FILTER_POINTS = (1024, 2048)
 GUIDE_SHAPE = (64, 64, 4)   # one guide call: B=64 x H=64 waypoints
 NOWAIT_PAIRS = (0, 3, 6)   # of the 10-agent circle (multi_agent_utils.py:82-90)
 CONVEYOR_TASK = ((-0.8, 0.0), (0.8, 0.0))  # straight through the centre box
@@ -193,6 +225,29 @@ BF16_PARITY_LOSS_TOL, BF16_PARITY_COSINE = 1e-2, 0.999
 JAX_STEP2000_LOSSES = (0.0749758333, 0.0692303479, 0.0693059564, 0.0697581619)
 TRAIN_BAND = (0.8 * min(JAX_STEP2000_LOSSES), 1.2 * max(JAX_STEP2000_LOSSES))
 TRAIN_MODELS = os.path.join(ROOT, "build", "chip_smoke_train")  # gitignored
+# The evaluation (phase 12): tasks a map, and the bands around MODEL_EVAL.yaml's
+# float32 DDPM rows (JAX, 50 tasks): success must be 1.0 as JAX's on all five
+# maps; fraction-free within 0.05; adherence within 0.2, since at 10 tasks one
+# task moves it by 0.1. The bfloat16 and DDIM rows on EVAL_EXTRA_MAP are
+# printed beside JAX's, not held (JAX's bf16 DDIM succeeds 0.1 there).
+EVAL_TASKS = 10
+EVAL_MAPS = ("EnvEmpty2D", "EnvEmptyNoWait2D", "EnvConveyor2D", "EnvHighways2D",
+             "EnvDropRegion2D")
+EVAL_EXTRA_MAP = "EnvConveyor2D"
+EVAL_FREE_BAND, EVAL_ADHERENCE_BAND = 0.05, 0.2
+# Data generation (phase 13) at scripts/generate_data.py's widths: 20
+# trajectories a context, H = 64, 300 GPMP2 iterations; the linear data of
+# EnvEmptyNoWait2D at the reference's 500 contexts.
+DATAGEN_MAPS = ("EnvConveyor2D", "EnvHighways2D")
+DATAGEN_CONTEXTS, DATAGEN_TRAJS, DATAGEN_ITERS, DATAGEN_LINEAR = 2, 20, 300, 500
+DATAGEN_SEED = 0
+# JAX's free trajectories of the 20 planned in the same contexts on the CPU
+# (tools/jax_datagen_keep.py, JAX 0.9.0, the native RRT): printed beside the
+# port's, not held, since the native RRT is built with -march=native and
+# another CPU may round its paths otherwise.
+JAX_KEPT = {("EnvConveyor2D", 0): 1, ("EnvConveyor2D", 1): 20, ("EnvHighways2D", 0): 20,
+            ("EnvHighways2D", 1): 20}
+DATAGEN_OUT = os.path.join(ROOT, "build", "chip_smoke_data")  # gitignored
 
 _phase = ["start"]
 
@@ -326,8 +381,12 @@ def main() -> int:
         cases = {n: torch.from_numpy(kernel_points(n, scene.grid, n)).to(dev)
                  for n in (n_final, 65536, 4032, 999)}
         cases["guide view"] = batch.reshape(64, 64, 4)[:, 1:, :2]  # a strided view
-        cases["summary"] = torch.from_numpy(kernel_points(
-            SUMMARY_SHAPE[0] * SUMMARY_SHAPE[1], scene.grid, 25)).to(dev).reshape(*SUMMARY_SHAPE, 2)
+        for n in FILTER_POINTS:
+            cases[f"filter {n}"] = torch.from_numpy(kernel_points(n, scene.grid, n + 1)).to(dev)
+        for case, shape in (("summary", SUMMARY_SHAPE), ("context", CONTEXT_SHAPE),
+                            ("linear", LINEAR_SHAPE)):
+            cases[case] = torch.from_numpy(kernel_points(
+                shape[0] * shape[1], scene.grid, shape[0])).to(dev).reshape(*shape, 2)
         for case, pts in cases.items():
             got = grid_lookup_cuda(pts, tables, scene.grid.lower, scene.grid.upper)
             want = grid_lookup_plain(pts, tables, scene.grid.lower, scene.grid.upper)
@@ -339,7 +398,9 @@ def main() -> int:
                                        f"max abs err {err}")
                 lookup_err = max(lookup_err, err)
         print(f"kernel: {env_name} lookup equal to plain at {n_final}/65536/4032/999 "
-              f"points, a strided (64, 63, 2) view and the summary's {SUMMARY_SHAPE + (2,)}")
+              f"points, the filter's {FILTER_POINTS} candidates, a strided (64, 63, 2) "
+              f"view, the summary's {SUMMARY_SHAPE + (2,)}, a context's "
+              f"{CONTEXT_SHAPE + (2,)} and the linear data's {LINEAR_SHAPE + (2,)}")
 
     scene = make_env("EnvConveyor2D", dev).scene
     tables = [(scene.grid.values, scene.grid.grads),
@@ -542,6 +603,12 @@ def main() -> int:
     phase("train")
     trained = run_train_phase(dev, guide_calls)
 
+    phase("eval")
+    evaluated = run_eval_phase(dev, guide_calls, plain_lookup)
+
+    phase("datagen")
+    generated = run_datagen_phase(dev, plain_lookup)
+
     phase("report")
     floor_us = launch_floor_us()
     print(f"report: launch floor (a 1-element fill_) {floor_us:.4f} us on the device")
@@ -551,7 +618,10 @@ def main() -> int:
                    "xecbs": cbs["launches"][name]}
         by_path.update({k: v[name] for k, v in tiles["launches"].items()})
         by_path["train"] = trained["launches"][name]
-        return {"launches": trained["launches"][name], "launches_by_path": by_path,
+        by_path["eval"] = evaluated["launches"][name]
+        by_path["datagen"] = generated["launches"][name]
+        # This slice's path: evaluation and data generation.
+        return {"launches": by_path["eval"] + by_path["datagen"], "launches_by_path": by_path,
                 "launch_floor_us": floor_us}
 
     stacked = tiles["kernel"]
@@ -575,7 +645,8 @@ def main() -> int:
                                "agent_s": timing.get("agent_s"), "status": str(status),
                                "conflicts": n_conflicts},
                       "xecbs": cbs["summary"], "tiles": tiles["summary"],
-                      "train": trained["summary"],
+                      "train": trained["summary"], "eval": evaluated["summary"],
+                      "datagen": generated["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3)}))
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
@@ -1163,6 +1234,236 @@ def run_train_phase(dev, guide_calls):
                     "summary": stats, "plan_s": out.t_total,
                     "plan_success": out.success_free_trajs, "band": list(TRAIN_BAND)})
     return {"launches": launches, "lookup_err": lookup_err, "summary": summary}
+
+
+def run_eval_phase(dev, guide_calls, plain_lookup, n_tasks: int = EVAL_TASKS,
+                   maps=EVAL_MAPS):
+    """Phase 12 (module docstring): `mmd_torch.tools.eval_model`'s rates on
+    the card."""
+    import torch
+
+    from mmd_torch.costs import guide
+    from mmd_torch.costs.guide import collision_guide_plain
+    from mmd_torch.experiments.trial import ModelRegistry
+    from mmd_torch.io.flat_yaml import load_rows
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+    from mmd_torch.tools.eval_model import evaluate
+
+    jax_rows = {r["model"]: r for r in load_rows(os.path.join(ROOT, "MODEL_EVAL.yaml"))
+                if "variant" not in r}
+    registry = ModelRegistry(device=dev)
+    counts, kept = [], {}
+
+    def counting(i, planner):
+        """Plan task i, recording its launches; keep the first DDIM task's
+        planner, generator state and plan for the replay."""
+        state = planner._generator.get_state()
+        before = (collision_guide.launches, grid_lookup.launches)
+        out = planner()
+        counts.append((planner.cfg.sampler, collision_guide.launches - before[0],
+                       grid_lookup.launches - before[1]))
+        if planner.cfg.sampler == "ddim" and not kept:
+            kept.update(planner=planner, state=state, out=out)
+        return out
+
+    runs = [(env, {}) for env in maps]
+    runs += [(EVAL_EXTRA_MAP, {"bf16": True}), (EVAL_EXTRA_MAP, {"sampler": "ddim"})]
+    rows = []
+    grid_lookup.launches = collision_guide.launches = 0  # eval path starts
+    t0 = time.perf_counter()
+    for env, kw in runs:
+        rows.append(evaluate(env, n_tasks=n_tasks, device=dev, registry=registry,
+                             run_plan=counting, **kw))
+    launches = {"grid_sdf_lookup": grid_lookup.launches,
+                "collision_guide": collision_guide.launches}  # eval path ends
+    wall = time.perf_counter() - t0
+    failures = []
+    for row in rows:
+        ref = jax_rows.get(row["model"], {})
+        held = "+" not in row["model"]  # the float32 DDPM rows
+        print(f"eval: {row['model']} over {row['n_tasks']} tasks: fraction_free "
+              f"{row['fraction_free']:.4f}, success {row['success_rate']:.2f}, adherence "
+              f"{row['adherence']}, plan {row['plan_time']:.4f} s; JAX (MODEL_EVAL.yaml, 50 "
+              f"tasks) {ref.get('fraction_free')}, {ref.get('success_rate')}, "
+              f"{ref.get('adherence')}" + ("" if held else " (reported, not held)"))
+        if held and not (row["success_rate"] == 1.0
+                         and row["fraction_free"] >= ref["fraction_free"] - EVAL_FREE_BAND
+                         and row["adherence"] is not None
+                         and row["adherence"] >= ref["adherence"] - EVAL_ADHERENCE_BAND):
+            failures.append(row["model"])
+    cfg = kept["planner"].cfg if kept else None
+    want = {"ddpm": (guide_calls, 1),
+            "ddim": ((cfg.n_guided_steps() * cfg.n_guide_steps) if cfg else None, 1)}
+    wrong = [c for c in counts if c[1:] != want[c[0]]]
+    print(f"eval: {len(counts)} plans in {wall:.2f} s, launches by plan: DDPM "
+          f"{sorted({c[1:] for c in counts if c[0] == 'ddpm'})}, DDIM "
+          f"{sorted({c[1:] for c in counts if c[0] == 'ddim'})} (expected {want}); totals "
+          f"{launches}")
+    if failures:
+        raise RuntimeError(f"evaluation rates outside their bands: {failures}")
+    if wrong or len(counts) != n_tasks * len(runs):
+        raise RuntimeError(f"evaluation plans launched {wrong[:5]}, expected {want}")
+
+    planner = kept["planner"]
+    planner._generator.set_state(kept["state"])
+    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+        replay = planner(noise=planner.draw_noise())
+    diff = float((kept["out"].trajs_final - replay.trajs_final).abs().max())
+    print(f"replay: the first DDIM {EVAL_EXTRA_MAP} plan on the card with both plain "
+          f"versions, max |trajs_final kernels - plain| {diff:.3e} (tolerance {REPLAY_TOL})")
+    if not diff <= REPLAY_TOL or not torch.isfinite(replay.trajs_final).all():
+        raise RuntimeError(f"the kernels' and the plain versions' DDIM plans differ by {diff}")
+    return {"launches": launches, "summary": {"rows": rows, "wall_s": wall,
+                                              "ddim_replay_err": diff}}
+
+
+class GuardedGPMP2:
+    """`hybrid.gpmp2_optimize` under torch's sync debug mode "error", so that
+    a host wait inside the GPMP2 loop raises; it counts the lookup's launches
+    in the loop, times the loop with CUDA events, counts the particles whose
+    factor failed (NaN) and keeps the last call's inputs and output for the
+    replay."""
+
+    def __init__(self, kept):
+        self.kept, self.lookups, self.ms, self.nan, self.last = kept, [], [], [], None
+
+    def __call__(self, scene, start, goal, init, cfg):
+        import torch
+
+        from mmd_torch.ops.sdf_kernel import grid_lookup
+
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        before = grid_lookup.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start_ev.record()
+            out = self.kept(scene, start, goal, init, cfg)
+            end_ev.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        end_ev.synchronize()
+        self.lookups.append(grid_lookup.launches - before)
+        self.nan.append(int(torch.isnan(out).flatten(1).any(1).sum()))
+        self.ms.append(start_ev.elapsed_time(end_ev))
+        self.last = (scene, start, goal, init.clone(), cfg, out.clone())
+        return out
+
+
+def run_datagen_phase(dev, plain_lookup, n_contexts: int = DATAGEN_CONTEXTS,
+                      n_trajectories: int = DATAGEN_TRAJS, opt_iters: int = DATAGEN_ITERS,
+                      n_linear: int = DATAGEN_LINEAR):
+    """Phase 13 (module docstring): data generation on the card."""
+    import numpy as np
+    import torch
+
+    from mmd_torch.datagen import generate, hybrid, native_rrt
+    from mmd_torch.datagen.synthetic import generate_linear_dataset
+    from mmd_torch.datasets.trajectories import TrajectoryDataset, model_id
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+    from mmd_torch.tools.profile_plan import _busy_us, _traced
+
+    if not native_rrt.native_available():
+        raise RuntimeError(f"the native RRT ({native_rrt.SOURCE}) did not build")
+    t_phase = time.perf_counter()
+    guard = GuardedGPMP2(hybrid.gpmp2_optimize)
+
+    def context(env_name, rng):
+        return generate.generate_context_trajectories(
+            env_name, rng, n_trajectories=n_trajectories, gpmp_opt_iters=opt_iters,
+            device=dev, native=True)
+
+    with routed(hybrid, "gpmp2_optimize", guard):
+        t0 = time.perf_counter()
+        context("EnvConveyor2D", np.random.default_rng(DATAGEN_SEED + 1))  # warm-up
+        print(f"datagen: warm-up context {time.perf_counter() - t0:.2f} s, GPMP2 under sync "
+              f"debug mode 'error' (no host sync in its loop), {guard.lookups[-1]} lookups "
+              f"for {opt_iters} iterations")
+        results = []
+        grid_lookup.launches = collision_guide.launches = 0  # datagen path starts
+        for env_name in DATAGEN_MAPS:
+            rng = np.random.default_rng(DATAGEN_SEED)
+            for i in range(n_contexts):
+                before = grid_lookup.launches
+                ctx = context(env_name, rng)
+                results.append((env_name, i, ctx, grid_lookup.launches - before,
+                                guard.ms[-1], guard.lookups[-1], guard.nan[-1]))
+        launches = {"grid_sdf_lookup": grid_lookup.launches,
+                    "collision_guide": collision_guide.launches}
+        # datagen path ends
+    if launches["collision_guide"] != 0:
+        raise RuntimeError(f"data generation launched the collision guide "
+                           f"{launches['collision_guide']} times; it has no guide")
+    summary = []
+    for env_name, i, ctx, n_lookups, gpmp2_ms, loop_lookups, nan in results:
+        summary.append({"env": env_name, "context": i, "planner": ctx.planner,
+                        "kept": len(ctx.trajs), "planned": ctx.n_planned,
+                        "jax_kept": JAX_KEPT.get((env_name, i)), "seconds": ctx.seconds,
+                        "segments_s": ctx.segments_s, "gpmp2_ms": gpmp2_ms,
+                        "lookups": n_lookups, "failed_factors": nan})
+        print(f"datagen: {env_name} context {i}: {len(ctx.trajs)} of {ctx.n_planned} free "
+              f"(JAX on the CPU: {JAX_KEPT.get((env_name, i))}, not held), "
+              f"{ctx.seconds:.3f} s wall "
+              f"({ctx.segments_s:.3f} s {ctx.planner} RRT and splines on the host), GPMP2 "
+              f"{gpmp2_ms:.2f} ms on the device (CUDA events), lookups {n_lookups} "
+              f"({loop_lookups} in the loop), particles whose factor failed (NaN) {nan}")
+        if ctx.planner != "native" or loop_lookups != opt_iters or n_lookups != opt_iters + 1:
+            raise RuntimeError(f"{env_name} context: planner {ctx.planner}, lookups "
+                               f"{loop_lookups} in GPMP2 and {n_lookups} in all, expected "
+                               f"{opt_iters} and {opt_iters + 1}")
+        if ctx.trajs.shape[1:] != (64, 4) or not np.isfinite(ctx.trajs).all():
+            raise RuntimeError(f"{env_name} context: trajectories not finite of (64, 4)")
+    kept = sum(s["kept"] for s in summary) / sum(s["planned"] for s in summary)
+    if kept == 0:
+        raise RuntimeError("no generated trajectory was free")
+
+    scene, start, goal, init, cfg, out = guard.last
+    with plain_lookup():
+        replay = hybrid.gpmp2_optimize(scene, start, goal, init, cfg)
+    same = torch.equal(torch.nan_to_num(replay, nan=7.0), torch.nan_to_num(out, nan=7.0))
+    diff = float((replay - out).nan_to_num().abs().max())
+    print(f"replay: the last context's GPMP2 ({tuple(init.shape)}, {cfg.opt_iters} iterations) "
+          f"on the card with the plain lookup: equal {same}, max |diff| {diff:.3e} (tolerance "
+          f"{REPLAY_TOL})")
+    if not same:
+        raise RuntimeError(f"the kernel's and the plain lookup's GPMP2 differ by {diff}")
+    # Where GPMP2's time goes: one traced run of the same call.
+    _, events = _traced(lambda: hybrid.gpmp2_optimize(scene, start, goal, init, cfg), host=False)
+    busy_s = _busy_us(events) / 1e6
+    by_name = {}
+    for e in events:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    loop_s = guard.ms[-1] / 1e3
+    gpmp2_trace = {"kernels_per_iter": len(events) / cfg.opt_iters, "busy_s": busy_s,
+                   "idle_share": 1.0 - busy_s / loop_s, "top_us": top}
+    print(f"datagen: GPMP2 traced: {len(events) / cfg.opt_iters:.1f} kernels an iteration, "
+          f"device busy {busy_s:.4f} s of the untraced loop's {loop_s:.4f} s (idle share "
+          f"{gpmp2_trace['idle_share']:.3f}); most device time: "
+          + ", ".join(f"{n} {us:.0f} us" for n, us in top))
+
+    t0 = time.perf_counter()
+    linear = generate_linear_dataset("EnvEmptyNoWait2D", n_contexts=n_linear, seed=DATAGEN_SEED,
+                                     device=dev)
+    linear_s = time.perf_counter() - t0
+    linear.save(DATAGEN_OUT)
+    back = TrajectoryDataset.load_trajectories(DATAGEN_OUT, model_id("EnvEmptyNoWait2D"),
+                                               device=dev)
+    same_data = torch.equal(back.trajs, linear.trajs)
+    print(f"datagen: EnvEmptyNoWait2D linear data at {n_linear} contexts: {linear.n_trajs} "
+          f"free trajectories in {linear_s:.3f} s, saved under build/ and read back equal "
+          f"{same_data}")
+    if not same_data or linear.n_trajs == 0:
+        raise RuntimeError("the linear dataset did not read back equal")
+    phase_s = time.perf_counter() - t_phase
+    print(f"datagen: phase {phase_s:.2f} s")
+    return {"launches": launches, "summary": {"contexts": summary, "keep_rate": kept,
+                                              "phase_s": phase_s,
+                                              "replay_equal": same, "gpmp2_trace": gpmp2_trace,
+                                              "linear_trajs": int(linear.n_trajs),
+                                              "linear_s": linear_s}}
 
 
 if __name__ == "__main__":

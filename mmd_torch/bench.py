@@ -7,10 +7,11 @@ Reads the same environment variables as `bench.py`:
 - MMD_BENCH_AGENTS: team size (default 10), the circle of EnvEmptyNoWait2D
 - MMD_BENCH_PLANNER: PP, CBS, ECBS, XCBS or XECBS (default XECBS)
 - MMD_BENCH_BF16: the UNet's forward in bfloat16 (default 1)
-- MMD_BENCH_SAMPLER: ddpm (default)
-XCBS-R, XECBS-R (the repair rounds), the ddim sampler and bench.py's
-guide-iteration probe (a non-zero MMD_BENCH_GUIDE_STEPS) are not ported:
-they exit with status 2 and a message naming what is missing.
+- MMD_BENCH_SAMPLER: ddpm (default) or ddim (fresh plans run the DDIM
+  fast mode; XCBS's local replans stay DDPM)
+XCBS-R, XECBS-R (the repair rounds) and bench.py's guide-iteration probe
+(a non-zero MMD_BENCH_GUIDE_STEPS) are not ported: they exit with status 2
+and a message naming what is missing.
 
 The planners are built as `bench.py:45-74` builds them: the flagship
 checkpoint, its training normalizer, planner i seeded seed * 1000 + i, all
@@ -18,7 +19,8 @@ sharing one model. One warm-up search runs first; then a search on fresh
 search state is timed, and one JSON line is printed with `bench.py`'s keys:
 metric, value (wall seconds), unit, success, collision_free,
 ct_expansions, device_s (host seconds waiting on the card), host_s,
-device_calls, device_<phase>_s, unet_evals, and `device` (the card's name
+device_calls, device_<phase>_s, unet_evals, `sampler` when it is not
+ddpm (as bench.py:177-178), and `device` (the card's name
 and power limit from nvidia-smi). It leaves out `vs_baseline`, a TPU
 target, and `mfu_pct`, a TPU peak. It needs a CUDA card and exits with
 status 2 without one.
@@ -42,7 +44,6 @@ NOT_PORTED = {
               "(root_repair_rounds, conflict_detection.team_reselect/repair_accept)",
     "XECBS-R": "the repair rounds of mmd_tpu/planners/multi_agent/cbs.py "
                "(root_repair_rounds, conflict_detection.team_reselect/repair_accept)",
-    "ddim": "DDIM sampling, ddim_sample_loop of mmd_tpu/models/diffusion.py",
     "MMD_BENCH_GUIDE_STEPS": "the guide-iteration probe of bench.py:39-43, 75-78 (the "
                              "planners run the reference's 20 iterations a step)",
 }
@@ -64,10 +65,11 @@ def settings(env=os.environ) -> dict:
                             "port yet")
     if planner != "PP" and planner not in PLANNERS:
         raise ValueError(f"unknown MMD_BENCH_PLANNER {planner!r}")
-    if sampler != "ddpm":
+    if sampler not in ("ddpm", "ddim"):
         raise ValueError(f"unknown MMD_BENCH_SAMPLER {sampler!r}")
     return {"agents": int(env.get("MMD_BENCH_AGENTS", "10")), "planner": planner,
-            "bf16": env.get("MMD_BENCH_BF16", "1") not in ("0", "", "false")}
+            "bf16": env.get("MMD_BENCH_BF16", "1") not in ("0", "", "false"),
+            "sampler": sampler}
 
 
 def build_planners(s: dict, seed: int = 0):
@@ -79,7 +81,7 @@ def build_planners(s: dict, seed: int = 0):
     planners = load_planners(os.path.join(ROOT, "data_trained_models"),
                              os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
                              starts, goals, seeds=[seed * 1000 + i for i in range(len(starts))],
-                             device="cuda", bf16=s["bf16"])
+                             device="cuda", bf16=s["bf16"], sampler=s["sampler"])
     return planners, starts, goals
 
 
@@ -135,6 +137,7 @@ def main() -> int:
         "unet_evals": int(timing["unet_forwards"]),
         "plans_fresh": int(timing["plans_fresh"]), "plans_local": int(timing["plans_local"]),
         "bf16": s["bf16"],
+        **({"sampler": s["sampler"]} if s["sampler"] != "ddpm" else {}),
         "device": card(),
     }
     print(json.dumps(result))

@@ -6,7 +6,9 @@ Twin of `mmd_tpu/config.py`: the same values as plain frozen dataclasses
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,14 +43,15 @@ params = MMDParams()
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionConfig:
-    """Static configuration of one guided DDPM sampler.
+    """Static configuration of one guided diffusion sampler.
 
     Mirrors the knobs threaded through GaussianDiffusionModel + MPD
     (reference: mmd/models/diffusion_models/diffusion_model_base.py:48-105,
     mmd/planners/single_agent/mpd.py:267-304). The model predicts epsilon
-    and x0 is always clamped to [-1, 1], as in every checkpoint's config.
-    DDIM sampling is not ported yet; every loop here is DDPM, fresh or
-    warm-started (XCBS local inference).
+    and the DDPM loop clamps x0 to [-1, 1], as in every checkpoint's
+    config. With sampler 'ddim' a fresh full-denoise loop runs the DDIM
+    fast mode (diffusion_model_base.py:214-291) over `ddim_time_pairs`;
+    warm-started loops (XCBS local inference) stay DDPM.
     """
 
     horizon: int = 64
@@ -59,6 +62,40 @@ class DiffusionConfig:
     n_guide_steps: int = 20
     t_start_guide: int = 13        # ceil(0.5 * 25)
     noise_std_extra: float = 0.5   # constant extra noise-std schedule (mpd.py:303)
+    sampler: str = "ddpm"          # or 'ddim'
+    # DDIM substeps; 0 = the reference's n_diffusion_steps // 5.
+    ddim_substeps: int = 0
+
+    def __post_init__(self):
+        if self.sampler not in ("ddpm", "ddim"):
+            raise ValueError(f"sampler must be 'ddpm' or 'ddim', got {self.sampler!r}")
+        # Past n_diffusion_steps the linspace of the time pairs repeats
+        # integer times, and below 0 it has no meaning.
+        if not 0 <= self.ddim_substeps <= self.n_diffusion_steps:
+            raise ValueError(f"ddim_substeps must lie in [0, {self.n_diffusion_steps}], "
+                             f"got {self.ddim_substeps}")
+
+    def ddim_time_pairs(self) -> List[Tuple[int, int]]:
+        """DDIM's (t, t_next) pairs, [(T-1, ...), ..., (0, -1)], over
+        ddim_substeps (default n_diffusion_steps // 5) substeps, as the JAX
+        package builds them (diffusion.py:246-250)."""
+        n = self.n_diffusion_steps
+        sub = self.ddim_substeps or max(1, n // 5)
+        times = [-1] + [int(v) for v in np.linspace(0, n - 1, sub + 1).astype(int)]
+        times = times[::-1]
+        return list(zip(times[:-1], times[1:]))
+
+    def is_ddim(self, n_steps: Optional[int] = None) -> bool:
+        """Whether a loop of n_steps noisy steps (a fresh full loop when
+        None) runs DDIM."""
+        return self.sampler == "ddim" and n_steps is None
+
+    def n_unet_forwards(self, n_steps: Optional[int] = None) -> int:
+        """UNet forwards of a loop of n_steps noisy steps (a fresh full
+        loop when None): one per DDIM pair, or one per DDPM step."""
+        if self.is_ddim(n_steps):
+            return len(self.ddim_time_pairs())
+        return len(self.step_indices(n_steps))
 
     def step_indices(self, n_steps: Optional[int] = None) -> List[int]:
         """Reverse-process step indices n-1 ... -n_no_noise of a loop of
@@ -69,6 +106,9 @@ class DiffusionConfig:
         return list(range(n - 1, -self.n_diffusion_steps_without_noise - 1, -1))
 
     def n_guided_steps(self, n_steps: Optional[int] = None) -> int:
-        """Steps that run guidance: those with index < t_start_guide,
-        the noise-free steps included."""
+        """Steps that run guidance: DDPM steps with index < t_start_guide,
+        the noise-free steps included; DDIM pairs with t_next in
+        [0, t_start_guide) (the final (0, -1) pair is not guided)."""
+        if self.is_ddim(n_steps):
+            return sum(1 for _, t in self.ddim_time_pairs() if 0 <= t < self.t_start_guide)
         return sum(1 for i in self.step_indices(n_steps) if i < self.t_start_guide)

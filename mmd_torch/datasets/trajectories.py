@@ -34,6 +34,11 @@ def model_id(env_name: str, robot_name: str = "RobotPlanarDisk") -> str:
     return f"{env_name}-{robot_name}"
 
 
+def env_name_from_model_id(mid: str) -> str:
+    """'EnvEmpty2D-RobotPlanarDisk' -> 'EnvEmpty2D'."""
+    return mid.split("-")[0]
+
+
 def npz_array_shape(path: str, name: str = "trajs") -> Tuple[int, ...]:
     """Shape of one array of an .npz, from its .npy header alone."""
     with zipfile.ZipFile(path) as zf, zf.open(f"{name}.npy") as f:

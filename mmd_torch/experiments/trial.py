@@ -20,7 +20,8 @@ import torch
 
 from mmd_torch.config import DiffusionConfig, params as default_params
 from mmd_torch.datasets.normalization import LimitsNormalizer
-from mmd_torch.datasets.trajectories import TrajectoryDataset
+from mmd_torch.datagen.synthetic import generate_linear_dataset
+from mmd_torch.datasets.trajectories import TrajectoryDataset, env_name_from_model_id
 from mmd_torch.planners.multi_agent.cbs import CBS
 from mmd_torch.planners.multi_agent.conflict_detection import team_conflict_summary
 from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
@@ -44,7 +45,9 @@ def tile_transform(coord: Sequence[int]) -> np.ndarray:
 class ModelRegistry:
     """(model, schedule, dataset) per model id, loaded once, the dataset
     with the checkpoint's training normalizer (the reference reloads
-    args.yaml for it, mpd.py:120)."""
+    args.yaml for it, mpd.py:120). A model whose dataset is missing gets
+    256 contexts of linear data (`generate_linear_dataset`, seed 7), as the
+    JAX registry falls back (trial.py:66-70)."""
 
     def __init__(self, trained_models_dir=ROOT / "data_trained_models",
                  trajectories_dir=ROOT / "data_trajectories", device="cuda"):
@@ -59,8 +62,17 @@ class ModelRegistry:
                 os.path.join(self.trained_models_dir, mid), device=self.device)
             normalizer = LimitsNormalizer.from_limits(
                 info["normalizer_mins"], info["normalizer_maxs"], device=self.device)
-            dataset = TrajectoryDataset.load(self.trajectories_dir, mid, normalizer,
-                                             device=self.device)
+            try:
+                dataset = TrajectoryDataset.load(self.trajectories_dir, mid, normalizer,
+                                                 device=self.device)
+            except FileNotFoundError:
+                env_name = env_name_from_model_id(mid)
+                print(f"ModelRegistry: no dataset for {mid} under {self.trajectories_dir}; "
+                      f"generating 256 contexts of linear data for {env_name}")
+                dataset = generate_linear_dataset(env_name, n_contexts=256, seed=7,
+                                                  device=self.device)
+                dataset.normalizer = normalizer
+                dataset.trajs_normalized = normalizer.normalize(dataset.trajs)
             self._cache[mid] = (model, schedule, dataset)
         return self._cache[mid]
 

@@ -1,4 +1,4 @@
-"""Guided DDPM sampling.
+"""Guided DDPM and DDIM sampling.
 
 Twin of `mmd_tpu/models/diffusion.py` (reference: mmd/models/
 diffusion_models/diffusion_model_base.py:48-461, sample_functions.py:41-107)
@@ -16,10 +16,13 @@ for fresh plans and XCBS's warm-started local inference. Semantics:
 - a warm-started loop (`run_local_inference`) q-samples a seed batch at
   t = n_noising_steps and runs n_denoising_steps + n_no_noise steps from it
   (diffusion_model_base.py:353-421)
+- with cfg.sampler 'ddim' a fresh full loop runs `ddim_sample_loop`
+  (diffusion_model_base.py:214-291) instead; warm-started loops stay DDPM
 
 Noise is injectable: `SamplerNoise` holds the loop's first draw (x_T of a
 fresh loop, the q-sample noise of a warm-started one) and one normal draw
-per step; without it, draws come from the caller's `torch.Generator`.
+per step (none for DDIM, whose eta is 0); without it, draws come from the
+caller's `torch.Generator`.
 
 `diffusion_loss` is the training loss (diffusion_model_base.py:435-456),
 its t and noise arguments, drawn by `draw_loss_noise`.
@@ -76,9 +79,10 @@ class SamplerNoise:
              n_steps: Optional[int] = None, n_tiles: Optional[int] = None) -> "SamplerNoise":
         """The draws of a loop of n_steps noisy steps (all of them by
         default; a local replan's n_denoising_steps), for n_tiles tiles if
-        given."""
+        given. A fresh DDIM loop draws x_T alone; a multi-tile loop is
+        DDPM whatever the sampler, as in the JAX package."""
         shape = ((n_tiles,) if n_tiles else ()) + (cfg.n_samples, cfg.horizon, cfg.state_dim)
-        n = len(cfg.step_indices(n_steps))
+        n = 0 if cfg.is_ddim(n_steps) and not n_tiles else len(cfg.step_indices(n_steps))
         kw = dict(generator=generator, device=device, dtype=torch.float32)
         return SamplerNoise(x_T=torch.randn(shape, **kw),
                             steps=torch.randn((n, *shape), **kw))
@@ -161,7 +165,10 @@ def guided_p_sample_loop(
     """The reverse process over n_diffusion_steps noisy steps (all of them
     by default) and the noise-free ones, from noise.x_T or, if given, from
     `warm_start` (diffusion.py:129-158). Returns (x_final, chain (S+1, B,
-    H, D))."""
+    H, D)). A fresh full loop of a DDIM config runs `ddim_sample_loop`
+    instead (diffusion.py:139-147)."""
+    if warm_start is None and cfg.is_ddim(n_diffusion_steps):
+        return ddim_sample_loop(model, schedule, hard, cfg, noise, gd=gd, guide_cfg=guide_cfg)
     steps = cfg.step_indices(n_diffusion_steps)
     if noise.steps.shape[0] != len(steps):
         raise ValueError(f"need {len(steps)} step draws, got {noise.steps.shape[0]}")
@@ -173,6 +180,55 @@ def guided_p_sample_loop(
                        guide_cfg, guided)
         chain.append(x)
     return x, torch.stack(chain)
+
+
+@torch.no_grad()
+def ddim_sample_loop(
+    model: nn.Module,
+    schedule: DiffusionSchedule,
+    hard: HardConds,
+    cfg: DiffusionConfig,
+    noise: SamplerNoise,
+    gd: Optional[GuideData] = None,
+    guide_cfg: Optional[GuideConfig] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DDIM with eta = 0 over `cfg.ddim_time_pairs()`, from noise.x_T
+    (diffusion.py:222-279). Returns (x_final, chain (n_pairs + 1, B, H, D)).
+
+    The update is x_{t'} = sqrt(ac_{t'}) x0 + sqrt(1 - ac_{t'}) eps, the
+    model's epsilon unchanged (diffusion_model_base.py:119-120). The
+    reference's quirks are kept: x0 is not clamped; guidance runs when
+    t_next < t_start_guide; the final (0, -1) pair returns x0 under the
+    hard conditions, with no guidance (:251-256, 270-271). One UNet
+    forward a pair.
+    """
+    if noise.steps.shape[0] != 0:
+        raise ValueError(f"a DDIM loop draws x_T alone, got {noise.steps.shape[0]} step draws")
+    x = hard.apply(noise.x_T)
+    chain = [x]
+    for t, t_next in cfg.ddim_time_pairs():
+        x = ddim_step(model, schedule, x, t, t_next, hard, gd, cfg, guide_cfg)
+        chain.append(x)
+        if t_next < 0:
+            break
+    return x, torch.stack(chain)
+
+
+def ddim_step(model: nn.Module, schedule: DiffusionSchedule, x: torch.Tensor, t: int,
+              t_next: int, hard: HardConds, gd: Optional[GuideData], cfg: DiffusionConfig,
+              guide_cfg: Optional[GuideConfig]) -> torch.Tensor:
+    """One DDIM substep from t to t_next (diffusion.py:259-277)."""
+    tb = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+    eps = model(x, tb)
+    x0 = predict_start_from_noise(schedule, x, tb, eps)
+    if t_next < 0:
+        return hard.apply(x0)
+    ac_next = schedule.alphas_cumprod[t_next]
+    x = torch.sqrt(ac_next) * x0 + torch.sqrt(1.0 - ac_next) * eps
+    if gd is not None and t_next < cfg.t_start_guide:
+        for _ in range(cfg.n_guide_steps):
+            x = hard.apply(x + guide_gradient(x, gd, guide_cfg))
+    return hard.apply(x)
 
 
 def run_inference(model: nn.Module, schedule: DiffusionSchedule, hard: HardConds,

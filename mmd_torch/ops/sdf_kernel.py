@@ -53,12 +53,14 @@ def box_span(lower: Tuple[float, ...], upper: Tuple[float, ...]) -> Tuple[float,
 
 
 def cell_index(points: torch.Tensor, shape, lower, upper):
-    """floor((x - lo) / span * n) clamped to the grid (grid_map_sdf.py:100-104)."""
+    """floor((x - lo) / span * n) clamped to the grid (grid_map_sdf.py:100-104).
+    A NaN coordinate reads cell 0, as in JAX (XLA converts NaN to integer 0)
+    and in the kernel (fmaxf(NaN, 0) is 0)."""
     kw = dict(dtype=torch.float32, device=points.device)
     lo = torch.tensor(lower, **kw)
     span = torch.tensor(box_span(lower, upper), **kw)
     n = torch.tensor([float(s) for s in shape], **kw)
-    f = torch.floor((points - lo) / span * n)
+    f = torch.nan_to_num(torch.floor((points - lo) / span * n), nan=0.0)
     f = torch.minimum(torch.clamp(f, min=0.0), n - 1.0)
     idx = f.to(torch.int64)
     return idx[..., 0], idx[..., 1]

@@ -200,7 +200,7 @@ class CBSBase:
         self.timing["plans_local" if local else "plans_fresh"] += n
         cfg = getattr(self.low_level_planner_l[0], "cfg", None)
         if cfg is not None:
-            self.timing["unet_forwards"] += n * len(cfg.step_indices(steps))
+            self.timing["unet_forwards"] += n * cfg.n_unet_forwards(steps)
 
     def _fetch(self, tree, phase: str):
         """`to_host` with the wait counted in `timing`, by phase: its

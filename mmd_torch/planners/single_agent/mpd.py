@@ -2,8 +2,9 @@
 
 Twin of `mmd_tpu/planners/single_agent/mpd.py` (reference:
 mmd/planners/single_agent/mpd.py:58-617). A plan call runs the guided
-DDPM loop, fresh or, given an experience, warm-started from that batch
-(XCBS local inference), then `_finalize_plan`: unnormalize, classify
+loop, fresh (DDPM, or DDIM with `sampler="ddim"`) or, given an
+experience, warm-started from that batch (XCBS local inference, always
+DDPM), then `_finalize_plan`: unnormalize, classify
 free/collision, score (path length + smoothness), select the best free
 trajectory and savgol-smooth (mpd.py:354-405). With `bf16` the UNet's
 forward alone runs in bfloat16; guide, posterior, finalize and selection
@@ -92,7 +93,8 @@ class MPD:
                  start_state_pos, goal_state_pos,
                  cfg: Optional[DiffusionConfig] = None,
                  guide_cfg: Optional[GuideConfig] = None,
-                 seed: int = default_params.seed, bf16: bool = False):
+                 seed: int = default_params.seed, bf16: bool = False,
+                 sampler: str = "ddpm", ddim_substeps: int = 0):
         # bf16: the UNet's bfloat16 twin, shared by every planner of the
         # model (mpd.py:71, 170).
         self.model = bf16_model(model) if bf16 else model
@@ -111,6 +113,11 @@ class MPD:
                                       * schedule.n_steps)),
             n_guide_steps=default_params.n_guide_steps,
         )
+        if sampler != self.cfg.sampler or ddim_substeps:
+            # DDIM runs fresh full loops only (mpd.py:185-190); the config
+            # checks ddim_substeps.
+            self.cfg = dataclasses.replace(self.cfg, sampler=sampler,
+                                           ddim_substeps=int(ddim_substeps))
         self.guide_cfg = guide_cfg or GuideConfig(dt=dataset.duration / H,
                                                   robot_radius=self.robot.radius)
         kw = dict(dtype=torch.float32, device=self.device)
@@ -233,19 +240,19 @@ class MPD:
 
 def load_planners(models_root: str, trajectories_root: str, env_name: str,
                   starts: Sequence, goals: Sequence, seeds: Optional[Sequence[int]] = None,
-                  device="cuda", bf16: bool = False) -> List[MPD]:
+                  device="cuda", bf16: bool = False, sampler: str = "ddpm") -> List[MPD]:
     """One MPD per (start, goal) for `env_name`, all sharing one model,
     schedule and dataset loaded from the repository's checkpoint and dataset
     metadata, with the checkpoint's training normalizer (as bench.py:54-66
     builds its planners; planner i is seeded seeds[i], by default i), the
-    UNet in bfloat16 if `bf16`."""
+    UNet in bfloat16 if `bf16`, sampling with `sampler`."""
     mid = model_id(env_name)
     model, schedule, info = load_checkpoint(os.path.join(models_root, mid), device=device)
     normalizer = LimitsNormalizer.from_limits(info["normalizer_mins"],
                                               info["normalizer_maxs"], device=device)
     dataset = TrajectoryDataset.load(trajectories_root, mid, normalizer, device=device)
     seeds = range(len(starts)) if seeds is None else seeds
-    return [MPD(model, schedule, dataset, s, g, seed=seed, bf16=bf16)
+    return [MPD(model, schedule, dataset, s, g, seed=seed, bf16=bf16, sampler=sampler)
             for s, g, seed in zip(starts, goals, seeds)]
 
 

@@ -8,6 +8,9 @@ Twin of `mmd_tpu/tasks/task.py` (reference: torch_robotics/tasks/tasks.py).
   margin = robot radius (tasks.py:236-254)
 - a free trajectory also stays inside the joint limits at every waypoint of
   the non-interpolated trajectory (tasks.py:263-285)
+- free configurations are drawn by rejection: a batch of uniform
+  candidates on the device, filtered there, survivors picked on the host
+  (tasks.py:105-131)
 """
 from __future__ import annotations
 
@@ -58,6 +61,23 @@ def classify_trajs(scene: SceneData, trajs: torch.Tensor, radius: float,
     return coll_free & in_limits, wp_coll
 
 
+def draw_candidates(generator: torch.Generator, n: int, q_min: torch.Tensor,
+                    q_max: torch.Tensor) -> torch.Tensor:
+    """n configurations uniform in [q_min, q_max], (n, 2), on the
+    generator's device."""
+    u = torch.rand((n, q_min.shape[-1]), generator=generator, device=q_min.device)
+    return q_min + u * (q_max - q_min)
+
+
+def _sample_coll_free(scene: SceneData, generator: torch.Generator, radius: float,
+                      q_min: torch.Tensor, q_max: torch.Tensor,
+                      n_candidates: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batch of rejection sampling (task.py:96-111): (candidates
+    (n_candidates, 2), free_mask (n_candidates,)), both on the device."""
+    qs = draw_candidates(generator, n_candidates, q_min, q_max)
+    return qs, ~waypoint_in_collision(scene, qs, radius)
+
+
 def _mean(mask: torch.Tensor) -> float:
     """The share of True in `mask` as `jnp.mean` computes it in float32: the
     (exact) count times the float32 reciprocal of the size, so that 9475 of
@@ -102,6 +122,27 @@ class PlanningTask:
     def compute_success_free_trajs(self, trajs: torch.Tensor) -> int:
         free, _ = self.get_trajs_collision_and_free(trajs)
         return int(free.any())
+
+    def random_coll_free_q(self, generator: torch.Generator, n_samples: int = 1,
+                           max_tries: int = 8) -> np.ndarray:
+        """n_samples collision-free configurations from `generator` (on the
+        task's device), as a host array: (2,) for one, else (n, 2)
+        (task.py:138-160). Each try draws 1024 * max(1, ceil(2n / 1024))
+        candidates, filters them on the device and reads them and their
+        mask to the host in one copy."""
+        n_candidates = 1024 * max(1, -(-2 * n_samples // 1024))
+        out = []
+        for _ in range(max_tries):
+            qs, free = _sample_coll_free(self.scene, generator, self.robot.radius,
+                                         self.robot.q_min, self.robot.q_max, n_candidates)
+            host = torch.cat([qs, free[:, None].to(qs.dtype)], dim=-1).cpu().numpy()
+            out.extend(host[host[:, -1] > 0, :-1][: n_samples - len(out)])
+            if len(out) >= n_samples:
+                break
+        if len(out) < n_samples:
+            raise RuntimeError("random_coll_free_q: could not find free configurations")
+        arr = np.stack(out).astype(np.float32)
+        return arr[0] if n_samples == 1 else arr
 
 
 def make_task(env_name: str, device="cuda") -> PlanningTask:

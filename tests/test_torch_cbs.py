@@ -410,12 +410,15 @@ def test_bench_maps_planners_as_bench_py():
     assert type(bench.make_team_planner(s, ps, starts, goals)) is PrioritizedPlanning
     with pytest.raises(ValueError):
         bench.settings({"MMD_BENCH_PLANNER": "XYZ"})
+    assert bench.settings({})["sampler"] == "ddpm"
+    assert bench.settings({"MMD_BENCH_SAMPLER": "ddim"})["sampler"] == "ddim"
+    with pytest.raises(ValueError):
+        bench.settings({"MMD_BENCH_SAMPLER": "xyz"})
 
 
 @pytest.mark.parametrize("env,names", [
     ({"MMD_BENCH_PLANNER": "XCBS-R"}, "repair"),
     ({"MMD_BENCH_PLANNER": "XECBS-R"}, "repair"),
-    ({"MMD_BENCH_SAMPLER": "ddim"}, "ddim_sample_loop"),
     ({"MMD_BENCH_GUIDE_STEPS": "3"}, "guide-iteration probe"),
 ])
 def test_bench_refuses_what_is_not_ported(env, names):

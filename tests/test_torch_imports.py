@@ -10,7 +10,8 @@ short XECBS search; then the training path at a small width: chip_smoke's
 card-against-CPU step parity (here CPU against CPU), `train` with
 validation, a summary and checkpoints, the checkpoint read back, a train
 state resumed, and the training CLI's refusal of a committed model
-directory. chip_smoke.py itself must exit non-zero and print no result
+directory; then a short DDIM plan, one generated context (RRT and GPMP2)
+and the evaluation CLI with its row file. chip_smoke.py itself must exit non-zero and print no result
 without a CUDA card, and when it stands alone in a directory.
 """
 import os
@@ -100,6 +101,22 @@ GUARDED = textwrap.dedent("""
     model, _, info = load_checkpoint(d, device="cpu")
     assert info["step"] == 8, info
     assert committed_models_dir(ROOT + "/data_trained_models_vd") and not committed_models_dir(d)
+    import numpy as np
+    from mmd_torch.planners.single_agent.mpd import load_planners
+    ddim = load_planners(ROOT + "/data_trained_models", ROOT + "/data_trajectories",
+                         "EnvEmptyNoWait2D", [start], [goal], device="cpu", sampler="ddim")[0]
+    ddim.cfg = dataclasses.replace(ddim.cfg, n_samples=2, n_guide_steps=1)
+    assert ddim().trajs_iters.shape == (7, 2, 64, 4)
+    from mmd_torch.datagen.generate import generate_context_trajectories
+    ctx = generate_context_trajectories("EnvConveyor2D", np.random.default_rng(0),
+                                        n_trajectories=2, gpmp_opt_iters=2, device="cpu")
+    assert ctx.trajs.shape[1:] == (64, 4) and ctx.n_planned == 2
+    from mmd_torch.io.flat_yaml import load_rows
+    from mmd_torch.tools import eval_model
+    rows = os.path.join(tempfile.mkdtemp(), "rows.yaml")
+    assert eval_model.main(["--env", "EnvEmptyNoWait2D", "--n_tasks", "1", "--n_samples", "2",
+                            "--device", "cpu", "--out_yaml", rows]) == 0
+    assert load_rows(rows)[0]["n_tasks"] == 1
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
