@@ -127,10 +127,29 @@ this file. Phases, one short line each:
    kernels with the most device time). Then EnvEmptyNoWait2D's
    linear data at DATAGEN_LINEAR contexts, saved under build/ and read back
    by `TrajectoryDataset.load_trajectories`, equal
-11. one JSON line of kernel numbers (launches: this slice's path, phases 12
-   and 13; launches by path: the four plans of phase 5, the team plan of
+14. experiments (after phase 13, before the report): a paired sweep
+   through `run_multi_agent_experiment` of
+   `mmd_torch.tools.launch_multi_agent_experiment`, on the 2x2 instance at
+   TILES_AGENTS agents, stagger STAGGER_DT, float32, EXPERIMENT_TRIALS
+   trials each of XECBS and PP with a EXPERIMENT_RUNTIME_LIMIT s limit,
+   saved under build/. No trial may raise (the sweep's own count); every
+   trial must save results.pkl and results.txt; the aggregate must have
+   the keys of the JAX package's (read from results/multitile-r5 as text);
+   XECBS must succeed in at least EXPERIMENT_XECBS_MIN trials, and every
+   SUCCESS must audit at 0 contacts again. Over the phase the collision
+   guide must launch 280 x fresh + 80 x local plans and the lookup 3 x
+   plans, by the plans each trial saved, and 2 x 4 more a trial (the
+   team's check of its starts and of its goals on the grid's 4 tiles). PP's
+   success rate and each trial's status are printed beside JAX's for the
+   same problems (results/multitile-r5, read as text), not held, with each
+   cell's mean planning time, expansions and adherence. Then a `Launcher`
+   pool of 2 spawned workers, started after this process has used CUDA:
+   each of its 2 runs must launch the lookup once in a worker and agree
+   with the plain version
+11. one JSON line of kernel numbers (launches: this slice's path, phase 14;
+   launches by path: the four plans of phase 5, the team plan of
    phase 7, the search of phase 8, phase 9's two plans, search and PP team,
-   phase 10's, and phases 12 and 13's; ms, plain and bound: the collision
+   phase 10's, and phases 12, 13 and 14's; ms, plain and bound: the collision
    guide at phase 9's stacked (3, 64, 64, 4), with phase 4's (64, 64, 4)
    beside them; `launch_floor_us`: the device time of a 1-element `fill_`
    from a profiler trace, the least a launch costs), then the contract line
@@ -248,6 +267,16 @@ DATAGEN_SEED = 0
 JAX_KEPT = {("EnvConveyor2D", 0): 1, ("EnvConveyor2D", 1): 20, ("EnvHighways2D", 0): 20,
             ("EnvHighways2D", 1): 20}
 DATAGEN_OUT = os.path.join(ROOT, "build", "chip_smoke_data")  # gitignored
+# The experiments (phase 14): JAX's 2x2 sweep at 10 trials a cell
+# (results/multitile-r5, frontier width 2, which changes the search's order
+# and not its result) succeeds in 10 of 10 XECBS trials at 4 agents; the
+# port's must succeed in at least 9. The 30 s limit bounds the phase.
+EXPERIMENT_TRIALS = 10
+EXPERIMENT_RUNTIME_LIMIT = 30.0
+EXPERIMENT_XECBS_MIN = 9
+EXPERIMENT_OUT = os.path.join(ROOT, "build", "chip_smoke_experiments")  # gitignored
+JAX_SWEEP = os.path.join(ROOT, "results", "multitile-r5")
+SPAWN_WORKERS = 2
 
 _phase = ["start"]
 
@@ -609,6 +638,9 @@ def main() -> int:
     phase("datagen")
     generated = run_datagen_phase(dev, plain_lookup)
 
+    phase("experiments")
+    experiments = run_experiments_phase(dev)
+
     phase("report")
     floor_us = launch_floor_us()
     print(f"report: launch floor (a 1-element fill_) {floor_us:.4f} us on the device")
@@ -620,8 +652,9 @@ def main() -> int:
         by_path["train"] = trained["launches"][name]
         by_path["eval"] = evaluated["launches"][name]
         by_path["datagen"] = generated["launches"][name]
-        # This slice's path: evaluation and data generation.
-        return {"launches": by_path["eval"] + by_path["datagen"], "launches_by_path": by_path,
+        by_path["experiments"] = experiments["launches"][name]
+        # This slice's path: the experiment harness.
+        return {"launches": by_path["experiments"], "launches_by_path": by_path,
                 "launch_floor_us": floor_us}
 
     stacked = tiles["kernel"]
@@ -646,7 +679,7 @@ def main() -> int:
                                "conflicts": n_conflicts},
                       "xecbs": cbs["summary"], "tiles": tiles["summary"],
                       "train": trained["summary"], "eval": evaluated["summary"],
-                      "datagen": generated["summary"],
+                      "datagen": generated["summary"], "experiments": experiments["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3)}))
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
@@ -1464,6 +1497,132 @@ def run_datagen_phase(dev, plain_lookup, n_contexts: int = DATAGEN_CONTEXTS,
                                               "replay_equal": same, "gpmp2_trace": gpmp2_trace,
                                               "linear_trajs": int(linear.n_trajs),
                                               "linear_s": linear_s}}
+
+
+
+def run_experiments_phase(dev, n_trials: int = EXPERIMENT_TRIALS):
+    """Phase 14 (module docstring): a paired sweep through the experiment
+    harness, and the spawn pool after CUDA."""
+    import pickle
+    import shutil
+
+    from mmd_torch.experiments.experiment_utils import (
+        read_aggregated_trial_results_for_experiment,
+    )
+    from mmd_torch.experiments.experiments import MultiAgentPlanningExperimentConfig
+    from mmd_torch.experiments.launcher import Launcher
+    from mmd_torch.experiments.status import TrialSuccessStatus
+    from mmd_torch.experiments.trial import ModelRegistry, audit_solution_collisions
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+    from mmd_torch.tools.launch_multi_agent_experiment import run_multi_agent_experiment
+    from mmd_torch.tools.pair_sweeps import expected_launches, text_aggregate, text_status
+    from mmd_torch.tools.worker_check import lookup_on_card
+
+    # JAX's sweep of the same cell, read as text.
+    jax_cells = text_aggregate(os.path.join(JAX_SWEEP, f"analyzed_results__{TILES_INSTANCE}.txt"))
+    jax_trials = os.path.join(JAX_SWEEP, f"instance_name___{TILES_INSTANCE}",
+                              f"num_agents___{TILES_AGENTS}")
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXPERIMENT_OUT, ignore_errors=True)
+    planners = ("XECBS", "PP")
+    cfg = MultiAgentPlanningExperimentConfig(
+        time_str="chip_smoke", instance_name=TILES_INSTANCE, num_agents_l=[TILES_AGENTS],
+        stagger_start_time_dt=STAGGER_DT, multi_agent_planner_class_l=list(planners),
+        single_agent_planner_class="MPDEnsemble", runtime_limit=EXPERIMENT_RUNTIME_LIMIT,
+        num_trials_per_combination=n_trials)
+    registry = ModelRegistry(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), device=dev)
+    grid_lookup.launches = collision_guide.launches = 0  # experiments path starts
+    analyzed, n_failed = run_multi_agent_experiment(cfg, EXPERIMENT_OUT, registry)
+    launches = {"grid_sdf_lookup": grid_lookup.launches,
+                "collision_guide": collision_guide.launches}  # experiments path ends
+    sweep_s = time.perf_counter() - t_phase
+    if n_failed:
+        raise RuntimeError(f"{n_failed} trials raised (build/chip_smoke_experiments/"
+                           f"error_chip_smoke.txt)")
+
+    trials = read_aggregated_trial_results_for_experiment(cfg, EXPERIMENT_OUT)[TILES_AGENTS]
+    cell_dir = os.path.join(EXPERIMENT_OUT, "chip_smoke", f"instance_name___{TILES_INSTANCE}",
+                            f"num_agents___{TILES_AGENTS}")
+    saved = all(os.path.exists(os.path.join(
+        cell_dir, f"planner___{p}", "single_agent_planner___MPDEnsemble", str(t), name))
+        for p in planners for t in range(n_trials) for name in ("results.pkl", "results.txt"))
+    with open(os.path.join(EXPERIMENT_OUT, "chip_smoke",
+                           f"analyzed_results__{TILES_INSTANCE}.pkl"), "rb") as f:
+        stored = pickle.load(f)
+    keys_equal = all(list(stored[TILES_AGENTS][p]) == list(jax_cells[(TILES_AGENTS, p)])
+                     for p in planners)
+    print(f"experiments: {2 * n_trials} trials in {sweep_s:.3f} s, {n_failed} raised; every "
+          f"trial saved results.pkl and results.txt {saved}; the aggregate has JAX's keys "
+          f"{keys_equal}")
+    if any(len(trials[p]) != n_trials for p in planners) or not saved or not keys_equal:
+        raise RuntimeError(f"the sweep's tree is incomplete: {[len(trials[p]) for p in planners]} "
+                           f"trials read back, saved {saved}, keys {keys_equal}")
+
+    ids = trials["XECBS"][0].global_model_ids
+    grid_tiles = len(ids) * len(ids[0])
+    want = expected_launches(trials["XECBS"] + trials["PP"], grid_tiles)
+    fresh, local = want.pop("plans_fresh"), want.pop("plans_local")
+    print(f"experiments: plans fresh {fresh}, local {local}; launches collision "
+          f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']} (expected "
+          f"{want['collision_guide']} and {want['grid_sdf_lookup']}: 3 a plan and 2 x "
+          f"{grid_tiles} a trial)")
+    if launches != want:
+        raise RuntimeError(f"the sweep launched {launches}, expected {want}")
+
+    summary = {"trials": n_trials, "sweep_s": sweep_s, "launches": launches,
+               "plans_fresh": fresh, "plans_local": local}
+    radius = registry.get(ids[0][0])[2].robot.radius
+    for p in planners:
+        statuses = [str(r.success_status) for r in trials[p]]
+        jax = [text_status(os.path.join(jax_trials, f"planner___{p}",
+                                        "single_agent_planner___MPDEnsemble", str(t),
+                                        "results.txt")) for t in range(n_trials)]
+        contacts = [audit_solution_collisions(r.agent_path_l, radius) for r in trials[p]
+                    if r.success_status == TrialSuccessStatus.SUCCESS]
+        d, jd = analyzed[TILES_AGENTS][p], jax_cells[(TILES_AGENTS, p)]
+        n_success = statuses.count("SUCCESS")
+        print(f"experiments: {p}: success {d['success_rate']:.2f} ({n_success} of {n_trials}; "
+              f"JAX {jd['success_rate']:.2f} of {jd['num_trials']}), mean planning time "
+              f"{d['avg_planning_time']:.3f} s, expansions {d['avg_ct_expansions']:.2f}, "
+              f"adherence {d['avg_data_adherence']:.4f} (JAX {jd['avg_data_adherence']:.4f}), "
+              f"collisions over all trials {d['avg_collisions_all_trials']:.2f} (JAX "
+              f"{jd['avg_collisions_all_trials']:.2f}); audited contacts of the successes "
+              f"{contacts}")
+        print(f"experiments: {p} by trial, port / JAX: "
+              + ", ".join(f"{t}: {a} / {b}" for t, (a, b) in enumerate(zip(statuses, jax))))
+        if any(contacts):
+            raise RuntimeError(f"{p}: a SUCCESS audits at {contacts} contacts")
+        summary[p] = {"successes": n_success, "success_rate": d["success_rate"],
+                      "jax_success_rate": jd["success_rate"],
+                      "statuses": statuses, "jax_statuses": jax,
+                      "avg_planning_time": d["avg_planning_time"],
+                      "avg_ct_expansions": d["avg_ct_expansions"],
+                      "avg_data_adherence": d["avg_data_adherence"],
+                      "avg_collisions_all_trials": d["avg_collisions_all_trials"]}
+    if summary["XECBS"]["successes"] < min(EXPERIMENT_XECBS_MIN, n_trials - 1):
+        raise RuntimeError(f"XECBS succeeded in {summary['XECBS']['successes']} of {n_trials}")
+
+    t0 = time.perf_counter()
+    launcher = Launcher("spawn_check", exp_fn=lookup_on_card, n_seeds=SPAWN_WORKERS,
+                        n_exps_in_parallel=SPAWN_WORKERS,
+                        base_dir=os.path.join(ROOT, "build", "chip_smoke_launcher"))
+    launcher.add_experiment(env_name="EnvConveyor2D")
+    outs = launcher.run(local=True)
+    pids = {o["pid"] for o in outs if isinstance(o, dict)}
+    print(f"experiments: spawn pool of {SPAWN_WORKERS} workers after CUDA init in "
+          f"{time.perf_counter() - t0:.3f} s: {outs}")
+    # The pool may hand both runs to one worker; each must run outside this process.
+    if len(outs) != SPAWN_WORKERS or os.getpid() in pids or any(
+            not isinstance(o, dict) or o["launches"] != 1 or o["max_abs_err"] != 0.0
+            for o in outs):
+        raise RuntimeError(f"the spawn pool failed: {outs}")
+    summary["spawn_workers"] = outs
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"experiments: phase {summary['phase_s']:.2f} s")
+    return {"launches": launches, "summary": summary}
 
 
 if __name__ == "__main__":

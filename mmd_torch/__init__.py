@@ -7,8 +7,11 @@ caller passes `device="cpu"`. Ported so far: the single-robot MPD planner
 (`planners.single_agent.mpd`), prioritized planning of a team
 (`planners.multi_agent.prioritized_planning`), the CBS-family search
 (`planners.multi_agent.cbs`), multi-tile planning
-(`planners.single_agent.mpd_ensemble`) and training (`train.trainer`,
-with checkpoints both packages read, `train.checkpoint`). Two hand-written CUDA
+(`planners.single_agent.mpd_ensemble`), training (`train.trainer`,
+with checkpoints both packages read, `train.checkpoint`), DDIM,
+evaluation and data generation (`tools.eval_model`, `datagen`), and the
+experiment harness (`experiments`, the sweep launchers and
+`tools.results_to_markdown`). Two hand-written CUDA
 kernels run on the card, the collision guide (`csrc/collision_guide.cu`)
 and the grid-SDF lookup (`csrc/grid_sdf.cu`); CPU tensors take their plain
 torch versions.

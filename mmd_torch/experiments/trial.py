@@ -1,17 +1,20 @@
-"""A multi-agent trial's planners: per-agent planners from (model ids, tile
-skeletons), the team planner, and the post-hoc solution audit.
+"""A multi-agent trial: per-agent planners from (model ids, tile
+skeletons), the team planner, the timed team plan, the post-hoc solution
+audit, the metrics and the saved result.
 
-Twin of the planner-building part of `mmd_tpu/experiments/trial.py`
-(reference: scripts/inference/inference_multi_agent.py:81-296): a
-single-tile agent gets an `MPD` in its tile's frame, a longer skeleton an
-`MPDEnsemble` in the global frame; agent i starts `stagger_dt * i` steps
-late; the reference task spans every tile of the grid. Saving results,
-the metrics and rendering are not ported.
+Twin of `mmd_tpu/experiments/trial.py` (reference:
+scripts/inference/inference_multi_agent.py:81-366): a single-tile agent
+gets an `MPD` in its tile's frame, a longer skeleton an `MPDEnsemble` in
+the global frame; agent i starts `stagger_dt * i` steps late; the
+reference task spans every tile of the grid. Not ported yet: the frame
+of a successful trial (mmd_single_trial.png) and its animation, which
+wait for `viz/` (ROADMAP.md Queue 1 item 4).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -22,6 +25,15 @@ from mmd_torch.config import DiffusionConfig, params as default_params
 from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.datagen.synthetic import generate_linear_dataset
 from mmd_torch.datasets.trajectories import TrajectoryDataset, env_name_from_model_id
+from mmd_torch.envs.envs import make_env
+from mmd_torch.experiments.experiments import (
+    RESULTS_ROOT,
+    MultiAgentPlanningSingleTrialConfig,
+    MultiAgentPlanningSingleTrialResult,
+    check_results_root,
+    get_result_dir_from_trial_config,
+)
+from mmd_torch.experiments.status import TrialSuccessStatus
 from mmd_torch.planners.multi_agent.cbs import CBS
 from mmd_torch.planners.multi_agent.conflict_detection import team_conflict_summary
 from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
@@ -30,6 +42,7 @@ from mmd_torch.planners.single_agent.mpd_ensemble import MPDEnsemble
 from mmd_torch.tasks.task import PlanningTask
 from mmd_torch.tasks.task_ensemble import TaskEnsemble
 from mmd_torch.train.checkpoint import load_checkpoint
+from mmd_torch.utils.metrics import compute_average_acceleration, compute_path_length
 
 ROOT = Path(__file__).resolve().parents[2]
 TILE_WIDTH = 2.0   # reference: inference_multi_agent.py:146-149
@@ -165,3 +178,129 @@ def build_multi_agent_trial(planner_class: str, start_l_local, goal_l_local,
     return TrialTeam(team=team, planners=planners, start_l=start_l, goal_l=goal_l,
                      start_time_l=start_time_l, model_ids_l=model_ids_l,
                      transforms_l=transforms_l)
+
+
+@dataclasses.dataclass
+class SolutionScore:
+    """What a team's solution scores: its status after the audit, the
+    contacts the audit added, and the success-only metrics (0.0 else)."""
+
+    status: TrialSuccessStatus
+    n_audit: int = 0
+    data_adherence: float = 0.0
+    path_length_per_agent: float = 0.0
+    mean_path_acceleration_per_agent: float = 0.0
+
+
+def score_solution(paths_l: List[np.ndarray], status: TrialSuccessStatus,
+                   start_time_l: List[int], model_ids_l: List[List[str]],
+                   transforms_l: List[np.ndarray], horizons: List[int],
+                   robot_radius: float = default_params.robot_planar_disk_radius
+                   ) -> SolutionScore:
+    """The scoring of run_multi_agent_trial, in JAX's order (trial.py:237-275;
+    reference: inference_multi_agent.py:286-330): a SUCCESS whose padded
+    paths bring two robots closer than 2 * radius becomes
+    FAIL_COLLISION_AGENTS with the contacts added; a SUCCESS that stands
+    gets agent i's data adherence, the mean over its skeleton's tiles of
+    its map's score of the tile's H = horizons[i] steps from its start
+    time, in the tile's frame, averaged over agents, and the mean path
+    length and acceleration over agents."""
+    score = SolutionScore(status=status)
+    if len(paths_l) > 0 and status == TrialSuccessStatus.SUCCESS:
+        score.n_audit = audit_solution_collisions(paths_l, robot_radius)
+        if score.n_audit > 0:
+            score.status = TrialSuccessStatus.FAIL_COLLISION_AGENTS
+    if score.status != TrialSuccessStatus.SUCCESS:
+        return score
+    adh_total = 0.0
+    for i, mids in enumerate(model_ids_l):
+        H, path, agent_adh = horizons[i], np.asarray(paths_l[i]), 0.0
+        for step, mid in enumerate(mids):
+            seg = path[start_time_l[i] + step * H: start_time_l[i] + (step + 1) * H, :2]
+            env = make_env(env_name_from_model_id(mid), device="cpu")
+            agent_adh += env.compute_traj_data_adherence(seg - transforms_l[i][step])
+        adh_total += agent_adh / len(mids)
+    score.data_adherence = adh_total / len(model_ids_l)
+    trajs = [torch.from_numpy(np.asarray(p, np.float32))[None] for p in paths_l]
+    score.path_length_per_agent = float(np.mean(
+        [float(compute_path_length(t)[0]) for t in trajs]))
+    score.mean_path_acceleration_per_agent = float(np.mean(
+        [float(compute_average_acceleration(t)[0]) for t in trajs]))
+    return score
+
+
+def refuse_unported(cfg: MultiAgentPlanningSingleTrialConfig, mesh=None) -> None:
+    """Raise ValueError for a knob of the JAX trial that the port lacks,
+    naming the ROADMAP.md item that ports it, rather than ignore it."""
+    search = {k: getattr(cfg, k) for k in ("frontier_width", "repair_period", "greedy_iters")}
+    if search["frontier_width"] > 1 or search["repair_period"] > 0 or search["greedy_iters"] > 0:
+        raise ValueError(f"{search}: the speculative search and repair rounds are not "
+                         f"ported (ROADMAP.md Queue 1 item 3); use frontier_width=1, "
+                         f"repair_period=0, greedy_iters=0")
+    if mesh is not None:
+        raise ValueError("mesh: sharding a team over devices is not ported "
+                         "(ROADMAP.md Queue 1 item 4, parallel/sharding.py)")
+    if cfg.render_animation:
+        raise ValueError("render_animation: rendering is not ported "
+                         "(ROADMAP.md Queue 1 item 4, viz/)")
+
+
+def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
+                          registry: Optional[ModelRegistry] = None,
+                          results_root: str = RESULTS_ROOT, save: bool = True,
+                          diffusion_cfg: Optional[DiffusionConfig] = None,
+                          mesh=None) -> MultiAgentPlanningSingleTrialResult:
+    """One trial (JAX trial.py:145-290; reference: inference_multi_agent.py:
+    81-366): build the planners on the registry's device (a new registry
+    of the repository's checkpoints on the card by default), time
+    `team.plan(runtime_limit)` on the host clock up to a synchronize of the
+    card, score the solution (`score_solution`) and save the result under
+    `results_root`. `planning_time` includes no compile: on the card the
+    kernels are built before the clock starts, and `jit_compile_time` is
+    0.0. The success frame (mmd_single_trial.png) is not written yet.
+    Unported knobs and, when saving, the committed `results/` tree raise
+    (`refuse_unported`, `check_results_root`)."""
+    refuse_unported(cfg, mesh)
+    if save:
+        check_results_root(results_root)
+    registry = registry or ModelRegistry()
+    trial = build_multi_agent_trial(
+        cfg.multi_agent_planner_class, cfg.start_state_pos_l, cfg.goal_state_pos_l,
+        cfg.global_model_ids, cfg.agent_skeleton_l, registry,
+        stagger_dt=cfg.stagger_start_time_dt, trial_number=cfg.trial_number,
+        diffusion_cfg=diffusion_cfg, bf16=cfg.bf16)
+    device = torch.device(registry.device)
+    if device.type == "cuda":
+        from mmd_torch.ops.build import load_kernels
+
+        load_kernels()  # built once a process, before the clock starts
+    t0 = time.perf_counter()
+    paths_l, num_ct_expansions, status, n_coll = trial.team.plan(
+        runtime_limit=cfg.runtime_limit)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    planning_time = time.perf_counter() - t0
+
+    score = score_solution(paths_l, status, trial.start_time_l, trial.model_ids_l,
+                           trial.transforms_l, [p.n_support_points for p in trial.planners])
+    result = MultiAgentPlanningSingleTrialResult(
+        trial_config=cfg,
+        agent_path_l=[np.asarray(p) for p in paths_l],
+        num_ct_expansions=num_ct_expansions,
+        success_status=score.status,
+        num_collisions_in_solution=n_coll + score.n_audit,
+        data_adherence=score.data_adherence,
+        planning_time=planning_time,
+        path_length_per_agent=score.path_length_per_agent,
+        mean_path_acceleration_per_agent=score.mean_path_acceleration_per_agent,
+        start_state_pos_l=[s.tolist() for s in trial.start_l],
+        goal_state_pos_l=[g.tolist() for g in trial.goal_l],
+        global_model_ids=cfg.global_model_ids,
+        agent_skeleton_l=cfg.agent_skeleton_l,
+        team_timing=dict(trial.team.timing),
+    )
+    if save:
+        result.save(get_result_dir_from_trial_config(
+            cfg, cfg.time_str or time.strftime("%y-%m-%d--%H-%M-%S"), cfg.trial_number,
+            root=results_root))
+    return result

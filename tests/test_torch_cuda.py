@@ -447,3 +447,19 @@ def test_train_chunk_waits_on_nothing(bf16):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(loss) and state.step == 14
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_spawned_launcher_workers_launch_the_lookup_after_cuda_init(tmp_path):
+    _need_card()
+    from mmd_torch.experiments.launcher import Launcher
+    from mmd_torch.tools.worker_check import lookup_on_card
+
+    torch.zeros(1, device="cuda").add_(1.0)  # this process has used CUDA
+    torch.cuda.synchronize()
+    launcher = Launcher("spawn", exp_fn=lookup_on_card, n_seeds=2, n_exps_in_parallel=2,
+                        base_dir=str(tmp_path))
+    launcher.add_experiment(env_name="EnvHighways2D")
+    out = launcher.run(local=True)
+    assert all(isinstance(o, dict) for o in out), out
+    assert [o["launches"] for o in out] == [1, 1] and [o["max_abs_err"] for o in out] == [0.0, 0.0]
+    assert os.getpid() not in {o["pid"] for o in out}

@@ -11,8 +11,12 @@ card-against-CPU step parity (here CPU against CPU), `train` with
 validation, a summary and checkpoints, the checkpoint read back, a train
 state resumed, and the training CLI's refusal of a committed model
 directory; then a short DDIM plan, one generated context (RRT and GPMP2)
-and the evaluation CLI with its row file. chip_smoke.py itself must exit non-zero and print no result
-without a CUDA card, and when it stands alone in a directory.
+and the evaluation CLI with its row file; then a one-trial sweep of the
+experiment harness with its aggregate rendered as markdown, and a
+launcher run with its args.yaml. The JAX package's scripts are blocked
+too, by package and by module name. chip_smoke.py itself must exit
+non-zero and print no result without a CUDA card, and when it stands
+alone in a directory.
 """
 import os
 import shutil
@@ -28,8 +32,12 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GUARDED = textwrap.dedent("""
-    import dataclasses, importlib, importlib.util, pkgutil, sys
-    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "matplotlib", "mmd_tpu"}
+    import dataclasses, importlib, importlib.util, os, pkgutil, sys
+    ROOT = sys.argv[1]
+    # The JAX package's scripts, by package and by the names they import as.
+    SCRIPTS = {f[:-3] for f in os.listdir(ROOT + "/scripts") if f.endswith(".py")}
+    BLOCKED = {"jax", "jaxlib", "flax", "optax", "yaml", "msgpack", "matplotlib", "mmd_tpu",
+               "scripts"} | SCRIPTS
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
@@ -41,7 +49,6 @@ GUARDED = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Block())
-    ROOT = sys.argv[1]
     sys.path.insert(0, ROOT)
     import torch
     torch.set_num_threads(1)
@@ -117,6 +124,26 @@ GUARDED = textwrap.dedent("""
     assert eval_model.main(["--env", "EnvEmptyNoWait2D", "--n_tasks", "1", "--n_samples", "2",
                             "--device", "cpu", "--out_yaml", rows]) == 0
     assert load_rows(rows)[0]["n_tasks"] == 1
+    from mmd_torch.config import DiffusionConfig
+    from mmd_torch.experiments.experiments import MultiAgentPlanningExperimentConfig
+    from mmd_torch.experiments.launcher import Launcher
+    from mmd_torch.experiments.trial import ModelRegistry
+    from mmd_torch.io.flat_yaml import load_flat_yaml
+    from mmd_torch.tools import results_to_markdown
+    from mmd_torch.tools.launch_multi_agent_experiment import run_multi_agent_experiment
+    out = tempfile.mkdtemp()
+    sweep = MultiAgentPlanningExperimentConfig(
+        time_str="s", instance_name="EnvEmptyNoWait2DRobotPlanarDiskCircle", num_agents_l=[2],
+        multi_agent_planner_class_l=["PP"])
+    analyzed, n_failed = run_multi_agent_experiment(
+        sweep, out, ModelRegistry(device="cpu"),
+        DiffusionConfig(n_samples=2, n_diffusion_steps=4, t_start_guide=2, n_guide_steps=1))
+    assert n_failed == 0 and analyzed[2]["PP"]["num_trials"] == 1, analyzed
+    assert "| 2 |" in results_to_markdown.render_dir(os.path.join(out, "s"))
+    launcher = Launcher("e", exp_fn=dict, base_dir=out)
+    launcher.add_experiment(x=1)
+    assert launcher.run()[0]["x"] == 1
+    assert load_flat_yaml(os.path.join(out, "e", "x_1", "0", "args.yaml"))["x"] == 1
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
