@@ -60,8 +60,21 @@ this file. Phases, one short line each:
    own count of its plans; then the same search replayed on the card (the
    generators restored) with both kernels routed to their plain versions,
    which must make the same expansions and choose the same indices, and
-   agree within REPLAY_TOL. It prints the wall seconds, the expansions,
-   the host's waits by phase, the plans by kind and the UNet forwards
+   agree within REPLAY_TOL. The search takes JAX's default path, the root
+   and a speculative greedy chain from it (`fused.root_greedy`): it must
+   accept at least one greedy step. It prints the wall seconds, the
+   expansions, the host's waits by phase, the plans by kind, the UNet
+   forwards, the chain's flag reads, the accepted steps and the audit's
+   events. Then the same search from the warm-up's draws with the greedy
+   chain turned off on the instance, so that every node goes through the
+   host-driven one-node expansion (`CBS.expand`, `fused.expand_children`),
+   which the search still takes where the chain does not apply, for the
+   frontier's recovery and for ECBS's starved children: run under sync
+   debug mode (every sync from `cbs.to_host`, at most one read per agent
+   in the root), it must read its children through that expansion and
+   none through a chain, succeed with no conflict, launch 280 x fresh +
+   80 x local collision guides and one lookup a plan, and replay exactly
+   with both plain versions
 9. tiles: multi-tile planning (`MPDEnsemble`, float32, B=64, H=64, 25+1
    DDPM steps) on the 2x2 staggered instance EnvTestTwoByTwoRobotPlanarDiskRandom
    (seed 0, 4 agents, stagger dt = 10; its 2x2 grid's tiles EnvEmptyNoWait2D,
@@ -146,10 +159,25 @@ this file. Phases, one short line each:
    pool of 2 spawned workers, started after this process has used CUDA:
    each of its 2 runs must launch the lookup once in a worker and agree
    with the plain version
-11. one JSON line of kernel numbers (launches: this slice's path, phase 14;
+15. speculative (after phase 14, before the report): (a) bench.py's
+   XECBS-R (`mmd_torch.bench`'s planners and team: the 10-robot circle,
+   bf16, one root repair round): a warm-up under torch's sync debug mode
+   (every sync from `cbs.to_host`), the search, which must succeed with no
+   conflict and launch exactly 280 x fresh + 80 x local collision guides
+   and one lookup a plan, and its replay with both kernels routed to
+   their plain versions (generators restored), which must be exact;
+   (b) one trial of JAX's dense grid (EnvConveyor2DRobotPlanarDiskRandom,
+   DENSE_AGENTS agents, the vd checkpoint, float32, XECBS, frontier width
+   2, DENSE_RUNTIME_LIMIT s; trial DENSE_TRIAL) through
+   `run_multi_agent_trial`: it must succeed, audit at 0 contacts, run at
+   least one frontier round of two nodes, and launch exactly what its plan
+   counts say (280 / 80 guide calls a plan, one lookup a plan and one for
+   each of the team's two checks)
+11. one JSON line of kernel numbers (launches: this slice's path, phase 15;
    launches by path: the four plans of phase 5, the team plan of
-   phase 7, the search of phase 8, phase 9's two plans, search and PP team,
-   phase 10's, and phases 12, 13 and 14's; ms, plain and bound: the collision
+   phase 7, the two searches of phase 8, phase 9's two plans, search and PP team,
+   phase 10's, phases 12, 13 and 14's, and phase 15's two; ms, plain and
+   bound: the collision
    guide at phase 9's stacked (3, 64, 64, 4), with phase 4's (64, 64, 4)
    beside them; `launch_floor_us`: the device time of a 1-element `fill_`
    from a profiler trace, the least a launch costs), then the contract line
@@ -277,6 +305,15 @@ EXPERIMENT_XECBS_MIN = 9
 EXPERIMENT_OUT = os.path.join(ROOT, "build", "chip_smoke_experiments")  # gitignored
 JAX_SWEEP = os.path.join(ROOT, "results", "multitile-r5")
 SPAWN_WORKERS = 2
+# The speculative search (phase 15): JAX's dense Conveyor vd grid at its
+# round-4 protocol (scripts/r5_stage_cd.sh:13-18 in f32: frontier width 2,
+# 60 s), at its smallest cell. Trial DENSE_TRIAL of the sweep's paired
+# problems runs a frontier round of two nodes here on an H100 (28.0-33.5
+# s, 12 expansions; trial 0 took 42 expansions and 44.9-61.4 s in sweeps).
+DENSE_INSTANCE = "EnvConveyor2DRobotPlanarDiskRandom"
+DENSE_AGENTS, DENSE_TRIAL, DENSE_RUNTIME_LIMIT, DENSE_WIDTH = 12, 1, 60.0, 2
+VD_MODELS = os.path.join(ROOT, "data_trained_models_vd")
+VD_DATA = os.path.join(ROOT, "data_trajectories_vd")
 
 _phase = ["start"]
 
@@ -379,10 +416,6 @@ def main() -> int:
     from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
     from mmd_torch.tools.guide_cases import HINGE_CUTOFF, tied_scene, waypoints
 
-    # The port is compared against its CPU run: keep float32 convolutions
-    # and matmuls out of TF32 on the card.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = "cuda"
 
     phase("card")
@@ -641,21 +674,25 @@ def main() -> int:
     phase("experiments")
     experiments = run_experiments_phase(dev)
 
+    phase("speculative")
+    speculative = run_speculative_phase(dev, cfg, plain_lookup)
+
     phase("report")
     floor_us = launch_floor_us()
     print(f"report: launch floor (a 1-element fill_) {floor_us:.4f} us on the device")
 
     def launches(name):
         by_path = {"slice": main_launches[name], "team": team_launches[name],
-                   "xecbs": cbs["launches"][name]}
+                   **{k: v[name] for k, v in cbs["launches"].items()}}
         by_path.update({k: v[name] for k, v in tiles["launches"].items()})
         by_path["train"] = trained["launches"][name]
         by_path["eval"] = evaluated["launches"][name]
         by_path["datagen"] = generated["launches"][name]
         by_path["experiments"] = experiments["launches"][name]
-        # This slice's path: the experiment harness.
-        return {"launches": by_path["experiments"], "launches_by_path": by_path,
-                "launch_floor_us": floor_us}
+        by_path.update({k: v[name] for k, v in speculative["launches"].items()})
+        # This slice's path: the speculative search and repair of phase 15.
+        return {"launches": sum(v[name] for v in speculative["launches"].values()),
+                "launches_by_path": by_path, "launch_floor_us": floor_us}
 
     stacked = tiles["kernel"]
     kernels = [{
@@ -680,6 +717,7 @@ def main() -> int:
                       "xecbs": cbs["summary"], "tiles": tiles["summary"],
                       "train": trained["summary"], "eval": evaluated["summary"],
                       "datagen": generated["summary"], "experiments": experiments["summary"],
+                      "speculative": speculative["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3)}))
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
@@ -736,78 +774,160 @@ def run_cbs_phase(dev, cfg, plain_lookup):
     if eps_bf16.dtype != torch.float32 or not bf16_err <= BF16_TOL:
         raise RuntimeError(f"bf16 forward off by {bf16_err} of max |eps|")
 
-    def search():
-        return CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
+    def search(host_driven=False):
+        team = CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
+        if host_driven:
+            # No node takes the greedy chain, so every node goes through
+            # the one-node `expand` (`fused.expand_children`), as nodes with
+            # more constraints on an agent than the chain's buffers take, the
+            # frontier's recovery, and ECBS's starved children.
+            team._greedy_kbuf = lambda state: None
+        return team
 
+    def under_sync_debug(team):
+        """team.plan under torch's sync debug mode: its result, and its
+        host syncs from cbs.to_host and from elsewhere."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = team.plan(runtime_limit=600)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, *_sync_origins(caught)
+
+    def check_syncs(name, team, others):
+        root_reads = team.timing.get("device_root_calls", 0) - 1  # the last follows the loop
+        if others:
+            raise RuntimeError(f"{name}: host syncs outside cbs.to_host: {others[:5]}")
+        if root_reads > TEAM_AGENTS:
+            raise RuntimeError(f"{name}: {root_reads} reads inside the ECBS root")
+        return root_reads
+
+    def check_search(name, team, out, launches):
+        """The search's result and its launches against its own plan counts."""
+        paths, n_exp, status, n_conflicts = out
+        fresh, local = team.timing["plans_fresh"], team.timing["plans_local"]
+        if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
+                or count_conflicts(paths, team.margin) != 0):
+            raise RuntimeError(f"{name} search: status {status}, {n_conflicts} conflicts")
+        want = (per_fresh * fresh + per_local * local, fresh + local)
+        if (launches["collision_guide"], launches["grid_sdf_lookup"]) != want:
+            raise RuntimeError(f"{name} search launched {launches}, expected {want} "
+                               f"({fresh} fresh plans, {local} local replans)")
+        if len(paths) != TEAM_AGENTS or not all(
+                p.shape == (cfg.horizon, cfg.state_dim) and np.isfinite(p).all() for p in paths):
+            raise RuntimeError(f"{name} paths not finite of the expected shape")
+
+    def check_replay(name, team, n_exp, states, host_driven=False):
+        """The same search on the card with both kernels routed to their
+        plain versions, the generators restored: exact."""
+        for p, state in zip(planners, states):
+            p._generator.set_state(state)
+        replay = search(host_driven)
+        with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+            _, replay_exp, _, _ = replay.plan(runtime_limit=600)
+        kept = team.final
+        diff = float((kept.paths_all - replay.final.paths_all).abs().max())
+        same = replay_exp == n_exp and kept.ix_best == replay.final.ix_best
+        print(f"replay: {name} search on the card with both plain versions in "
+              f"{replay.timing['plan_s']:.3f} s, {replay_exp} expansions, indices equal "
+              f"{kept.ix_best == replay.final.ix_best}, max |trajs_final kernels - plain| "
+              f"{diff:.3e} (tolerance {REPLAY_TOL})")
+        if not same or not diff <= REPLAY_TOL:
+            raise RuntimeError(f"{name}: the kernels' and the plain versions' searches "
+                               f"differ: expansions {n_exp}/{replay_exp}, max diff {diff}")
+
+    def waits_of(timing):
+        return {k[len("device_"):-2]: v for k, v in timing.items()
+                if k.startswith("device_") and k.endswith("_s") and k != "device_s"}
+
+    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
+    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
+    first_states = [p._generator.get_state() for p in planners]
     warm = search()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            _, warm_exp, warm_status, _ = warm.plan(runtime_limit=600)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    ours, others = _sync_origins(caught)
-    root_reads = warm.timing.get("device_root_calls", 0) - 1  # the last one follows the loop
+    (_, warm_exp, warm_status, _), ours, others = under_sync_debug(warm)
+    root_reads = check_syncs("XECBS", warm, others)
     print(f"cbs: warm-up XECBS search {time.perf_counter() - t0:.3f} s, {warm_status}, "
           f"{warm_exp} expansions; host syncs: {len(ours)} from cbs.to_host "
           f"({warm.timing['device_calls']} reads), {len(others)} elsewhere; reads inside "
           f"the ECBS root: {root_reads} for {TEAM_AGENTS} agents")
-    if others:
-        raise RuntimeError(f"host syncs outside cbs.to_host: {others[:5]}")
-    if root_reads > TEAM_AGENTS:
-        raise RuntimeError(f"{root_reads} reads inside the ECBS root")
 
     kept_states = [p._generator.get_state() for p in planners]
     xecbs = search()
+    if not xecbs._root_greedy_eligible():
+        raise RuntimeError("the XECBS search does not take the fused root and greedy chain")
+    xecbs.greedy_audit = []
     grid_lookup.launches = collision_guide.launches = 0  # xecbs path starts
-    paths, n_exp, status, n_conflicts = xecbs.plan(runtime_limit=600)
+    out = xecbs.plan(runtime_limit=600)
     launches = {"grid_sdf_lookup": grid_lookup.launches,
                 "collision_guide": collision_guide.launches}  # xecbs path ends
+    _, n_exp, status, n_conflicts = out
     timing = dict(xecbs.timing)
-    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
-    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
     fresh, local = timing["plans_fresh"], timing["plans_local"]
-    waits = {k[len("device_"):-2]: v for k, v in timing.items()
-             if k.startswith("device_") and k.endswith("_s") and k != "device_s"}
+    waits = waits_of(timing)
     print(f"cbs: {TEAM_AGENTS}-robot XECBS (bf16, DDPM) in {timing['plan_s']:.3f} s, {status}, "
           f"{n_conflicts} conflicts, {n_exp} expansions; host waits {timing['device_calls']} "
           f"({timing['device_s']:.3f} s) by phase {waits}; plans fresh {fresh}, local {local}; "
           f"UNet forwards {timing['unet_forwards']}; launches collision "
           f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']}")
-    if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
-            or count_conflicts(paths, xecbs.margin) != 0):
-        raise RuntimeError(f"XECBS search: status {status}, {n_conflicts} conflicts")
-    want = (per_fresh * fresh + per_local * local, fresh + local)
-    if (launches["collision_guide"], launches["grid_sdf_lookup"]) != want:
-        raise RuntimeError(f"XECBS search launched {launches}, expected {want} "
-                           f"({fresh} fresh plans, {local} local replans)")
-    if len(paths) != TEAM_AGENTS or not all(
-            p.shape == (cfg.horizon, cfg.state_dim) and np.isfinite(p).all() for p in paths):
-        raise RuntimeError("XECBS paths not finite of the expected shape")
+    greedy = audit_summary(xecbs.greedy_audit, timing)
+    print(f"cbs: greedy chain: {greedy['reads']} flag reads, {greedy['steps']} accepted "
+          f"steps; audit {xecbs.greedy_audit}")
+    if greedy["steps"] == 0:
+        raise RuntimeError("the XECBS search took no greedy step")
+    check_search("XECBS", xecbs, out, launches)
+    check_replay("XECBS", xecbs, n_exp, kept_states)
 
-    kept = xecbs.final
-    for p, state in zip(planners, kept_states):
+    # The host-driven expansion, from the warm-up's draws: its run under
+    # sync debug mode is the one whose launches count.
+    for p, state in zip(planners, first_states):
         p._generator.set_state(state)
-    replay = search()
-    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
-        _, replay_exp, _, _ = replay.plan(runtime_limit=600)
-    diff = float((kept.paths_all - replay.final.paths_all).abs().max())
-    same = replay_exp == n_exp and kept.ix_best == replay.final.ix_best
-    print(f"replay: XECBS search on the card with both plain versions in "
-          f"{replay.timing['plan_s']:.3f} s, {replay_exp} expansions, indices equal "
-          f"{kept.ix_best == replay.final.ix_best}, max |trajs_final kernels - plain| "
-          f"{diff:.3e} (tolerance {REPLAY_TOL})")
-    if not same or not diff <= REPLAY_TOL:
-        raise RuntimeError(f"the kernels' and the plain versions' searches differ: "
-                           f"expansions {n_exp}/{replay_exp}, max diff {diff}")
-    return {"launches": launches, "summary": {
+    host = search(host_driven=True)
+    if host._root_greedy_eligible():
+        raise RuntimeError("the host-driven XECBS search takes the greedy chain")
+    grid_lookup.launches = collision_guide.launches = 0  # xecbs_host path starts
+    host_out, host_ours, host_others = under_sync_debug(host)
+    host_launches = {"grid_sdf_lookup": grid_lookup.launches,
+                     "collision_guide": collision_guide.launches}  # xecbs_host path ends
+    host_root_reads = check_syncs("host-driven XECBS", host, host_others)
+    _, host_exp, host_status, host_conflicts = host_out
+    ht = dict(host.timing)
+    expand_reads = ht.get("device_children_calls", 0) + ht.get("device_expand_calls", 0)
+    print(f"cbs: host-driven {TEAM_AGENTS}-robot XECBS (one-node expand, under sync debug "
+          f"mode) in {ht['plan_s']:.3f} s, {host_status}, {host_conflicts} conflicts, "
+          f"{host_exp} expansions; host syncs: {len(host_ours)} from cbs.to_host, "
+          f"{len(host_others)} elsewhere; host waits {ht['device_calls']} by phase "
+          f"{waits_of(ht)}; plans fresh {ht['plans_fresh']}, local {ht['plans_local']}; "
+          f"launches collision {host_launches['collision_guide']}, lookup "
+          f"{host_launches['grid_sdf_lookup']}")
+    if expand_reads == 0 or ht.get("device_greedy_calls", 0) or host_exp == 0:
+        raise RuntimeError(f"the host-driven search made {host_exp} expansions with "
+                           f"{expand_reads} children/expand reads and "
+                           f"{ht.get('device_greedy_calls', 0)} greedy reads")
+    check_search("host-driven XECBS", host, host_out, host_launches)
+    check_replay("host-driven XECBS", host, host_exp, first_states, host_driven=True)
+    return {"launches": {"xecbs": launches, "xecbs_host": host_launches}, "summary": {
         "agents": TEAM_AGENTS, "plan_s": timing["plan_s"], "expansions": n_exp,
         "status": str(status), "conflicts": n_conflicts, "device_s": timing["device_s"],
         "device_calls": timing["device_calls"], "waits_s": waits, "plans_fresh": fresh,
         "plans_local": local, "unet_forwards": timing["unet_forwards"],
-        "bf16_err": bf16_err, "warmup_syncs": len(ours), "root_reads": root_reads}}
+        "bf16_err": bf16_err, "warmup_syncs": len(ours), "root_reads": root_reads,
+        "greedy": greedy, "host_driven": {
+            "plan_s_sync_debug": ht["plan_s"], "expansions": host_exp,
+            "status": str(host_status), "conflicts": host_conflicts,
+            "expand_reads": expand_reads, "root_reads": host_root_reads,
+            "syncs": len(host_ours), "plans_fresh": ht["plans_fresh"],
+            "plans_local": ht["plans_local"]}}}
+
+
+def audit_summary(audit, timing) -> dict:
+    """A search's greedy audit: its accepted steps, its events by kind and
+    the chains' flag reads."""
+    kinds = [e[0] for e in audit]
+    return {"steps": kinds.count("step"), "reads": timing.get("device_greedy_calls", 0),
+            "events": {k: kinds.count(k) for k in ("step", "stop", "freeze", "starved")}}
 
 
 def load_tiles_trial(planner_class: str, device: str):
@@ -1622,6 +1742,143 @@ def run_experiments_phase(dev, n_trials: int = EXPERIMENT_TRIALS):
     summary["spawn_workers"] = outs
     summary["phase_s"] = time.perf_counter() - t_phase
     print(f"experiments: phase {summary['phase_s']:.2f} s")
+    return {"launches": launches, "summary": summary}
+
+
+def run_speculative_phase(dev, cfg, plain_lookup):
+    """Phase 15 (module docstring): bench.py's XECBS-R, and one trial of
+    JAX's dense Conveyor grid at frontier width 2."""
+    import numpy as np
+    import torch
+
+    from mmd_torch import bench
+    from mmd_torch.costs import guide
+    from mmd_torch.costs.guide import collision_guide_plain
+    from mmd_torch.experiments.experiments import MultiAgentPlanningExperimentConfig
+    from mmd_torch.experiments.status import TrialSuccessStatus
+    from mmd_torch.experiments.trial import ModelRegistry, run_multi_agent_trial
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+    from mmd_torch.planners.multi_agent import fused
+    from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
+    from mmd_torch.tools.pair_sweeps import expected_launches
+
+    t_phase = time.perf_counter()
+    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
+    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
+    launches, summary = {}, {}
+
+    # (a) XECBS-R through the bench's own builders.
+    s = bench.settings({"MMD_BENCH_PLANNER": "XECBS-R", "MMD_BENCH_AGENTS": str(TEAM_AGENTS)})
+    planners, starts, goals = bench.build_planners(s)
+    warm = bench.make_team_planner(s, planners, starts, goals)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, warm_exp, warm_status, _ = warm.plan(runtime_limit=600)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    ours, others = _sync_origins(caught)
+    print(f"speculative: warm-up XECBS-R {warm.timing['plan_s']:.3f} s, {warm_status}, "
+          f"{warm_exp} expansions; host syncs: {len(ours)} from cbs.to_host "
+          f"({warm.timing['device_calls']} reads), {len(others)} elsewhere")
+    if others:
+        raise RuntimeError(f"host syncs outside cbs.to_host: {others[:5]}")
+    kept_states = [p._generator.get_state() for p in planners]
+    team = bench.make_team_planner(s, planners, starts, goals)
+    team.greedy_audit = []
+    grid_lookup.launches = collision_guide.launches = 0  # xecbs_r path starts
+    paths, n_exp, status, n_conflicts = team.plan(runtime_limit=600)
+    got = {"grid_sdf_lookup": grid_lookup.launches,
+           "collision_guide": collision_guide.launches}  # xecbs_r path ends
+    t = dict(team.timing)
+    fresh, local = t["plans_fresh"], t["plans_local"]
+    waits = {k[len("device_"):-2]: v for k, v in t.items()
+             if k.startswith("device_") and k.endswith("_s") and k != "device_s"}
+    print(f"speculative: {TEAM_AGENTS}-robot XECBS-R (bf16, {team.root_repair_rounds} repair "
+          f"round) in {t['plan_s']:.3f} s, {status}, {n_conflicts} conflicts, {n_exp} "
+          f"expansions; host waits {t['device_calls']} by phase {waits}; plans fresh {fresh}, "
+          f"local {local}; launches collision {got['collision_guide']}, lookup "
+          f"{got['grid_sdf_lookup']}; audit {team.greedy_audit}")
+    if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
+            or count_conflicts(paths, team.margin) != 0):
+        raise RuntimeError(f"XECBS-R search: status {status}, {n_conflicts} conflicts")
+    if t.get("device_repair_calls") != 3:
+        raise RuntimeError(f"XECBS-R read its repair {t.get('device_repair_calls')} times, "
+                           f"not 3 (reselect, round, reselect)")
+    want = {"collision_guide": per_fresh * fresh + per_local * local,
+            "grid_sdf_lookup": fresh + local}
+    if got != want:
+        raise RuntimeError(f"XECBS-R launched {got}, expected {want}")
+    kept = team.final
+    for p, state in zip(planners, kept_states):
+        p._generator.set_state(state)
+    replay = bench.make_team_planner(s, planners, starts, goals)
+    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+        _, replay_exp, _, _ = replay.plan(runtime_limit=600)
+    diff = float((kept.paths_all - replay.final.paths_all).abs().max())
+    same = replay_exp == n_exp and kept.ix_best == replay.final.ix_best
+    print(f"replay: XECBS-R on the card with both plain versions in "
+          f"{replay.timing['plan_s']:.3f} s, {replay_exp} expansions, indices equal "
+          f"{kept.ix_best == replay.final.ix_best}, max |trajs_final kernels - plain| "
+          f"{diff:.3e} (tolerance {REPLAY_TOL})")
+    if not same or not diff <= REPLAY_TOL:
+        raise RuntimeError(f"the kernels' and the plain versions' XECBS-R differ: "
+                           f"expansions {n_exp}/{replay_exp}, max diff {diff}")
+    launches["xecbs_r"] = got
+    summary["xecbs_r"] = {"plan_s": t["plan_s"], "status": str(status), "expansions": n_exp,
+                          "plans_fresh": fresh, "plans_local": local,
+                          "device_calls": t["device_calls"], "waits_s": waits,
+                          "warmup_syncs": len(ours), "greedy": audit_summary(
+                              team.greedy_audit, t)}
+
+    # (b) One trial of the dense Conveyor vd grid at frontier width 2.
+    exp_cfg = MultiAgentPlanningExperimentConfig(
+        time_str="chip_smoke_dense", instance_name=DENSE_INSTANCE, num_agents_l=[DENSE_AGENTS],
+        multi_agent_planner_class_l=["XECBS"], runtime_limit=DENSE_RUNTIME_LIMIT,
+        frontier_width=DENSE_WIDTH, num_trials_per_combination=DENSE_TRIAL + 1)
+    trial_cfg = exp_cfg.get_single_trial_configs_from_experiment_config()[DENSE_TRIAL]
+    registry = ModelRegistry(VD_MODELS, VD_DATA, device=dev)
+    rounds = []
+    real_frontier = fused.frontier_greedy_expand
+
+    def frontier(team_, noise_m, nodes, *a, **k):
+        rounds.append(len(nodes))
+        return real_frontier(team_, noise_m, nodes, *a, **k)
+
+    grid_lookup.launches = collision_guide.launches = 0  # dense path starts
+    with routed(fused, "frontier_greedy_expand", frontier):
+        r = run_multi_agent_trial(trial_cfg, registry, save=False)
+    got = {"grid_sdf_lookup": grid_lookup.launches,
+           "collision_guide": collision_guide.launches}  # dense path ends
+    want = expected_launches([r], grid_tiles=1)
+    fresh, local = want.pop("plans_fresh"), want.pop("plans_local")
+    tt = r.team_timing
+    print(f"speculative: dense trial {DENSE_TRIAL} of {DENSE_INSTANCE}, {DENSE_AGENTS} agents "
+          f"(vd, f32, XECBS, frontier width {DENSE_WIDTH}, {DENSE_RUNTIME_LIMIT:.0f} s): "
+          f"{r.success_status}, {r.num_collisions_in_solution} collisions, "
+          f"{r.num_ct_expansions} expansions in {r.planning_time:.3f} s; frontier rounds "
+          f"of {rounds} nodes; plans fresh {fresh}, local {local}; host waits "
+          f"{tt['device_calls']}; launches collision {got['collision_guide']}, lookup "
+          f"{got['grid_sdf_lookup']} (expected {want})")
+    if r.success_status != TrialSuccessStatus.SUCCESS or r.num_collisions_in_solution != 0:
+        raise RuntimeError(f"dense trial: {r.success_status}, "
+                           f"{r.num_collisions_in_solution} collisions")
+    if not any(m >= 2 for m in rounds):
+        raise RuntimeError(f"the dense trial ran no frontier round of two nodes: {rounds}")
+    if got != want:
+        raise RuntimeError(f"the dense trial launched {got}, expected {want}")
+    if not all(np.isfinite(p).all() for p in r.agent_path_l):
+        raise RuntimeError("dense trial paths not finite")
+    launches["dense"] = got
+    summary["dense"] = {"trial": DENSE_TRIAL, "agents": DENSE_AGENTS,
+                        "planning_time": r.planning_time, "status": str(r.success_status),
+                        "expansions": r.num_ct_expansions, "frontier_rounds": rounds,
+                        "plans_fresh": fresh, "plans_local": local,
+                        "adherence": r.data_adherence}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"speculative: phase {summary['phase_s']:.2f} s")
     return {"launches": launches, "summary": summary}
 
 

@@ -15,4 +15,13 @@ experiment harness (`experiments`, the sweep launchers and
 kernels run on the card, the collision guide (`csrc/collision_guide.cu`)
 and the grid-SDF lookup (`csrc/grid_sdf.cu`); CPU tensors take their plain
 torch versions.
+
+Float32 stays float32 on the card in every entry point: importing the
+package keeps cuDNN's convolutions and cuBLAS's matmuls out of TF32, so
+that the card's float32 runs are the float32 of the JAX package's results
+and of the port's CPU runs.
 """
+import torch
+
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False

@@ -5,13 +5,14 @@ repository's `bench.py` for the PyTorch port.
 
 Reads the same environment variables as `bench.py`:
 - MMD_BENCH_AGENTS: team size (default 10), the circle of EnvEmptyNoWait2D
-- MMD_BENCH_PLANNER: PP, CBS, ECBS, XCBS or XECBS (default XECBS)
+- MMD_BENCH_PLANNER: PP, CBS, ECBS, XCBS, XECBS (default), XCBS-R or
+  XECBS-R (XCBS and XECBS with MMD_BENCH_REPAIR root repair rounds,
+  default 1, bench.py:85-96)
 - MMD_BENCH_BF16: the UNet's forward in bfloat16 (default 1)
 - MMD_BENCH_SAMPLER: ddpm (default) or ddim (fresh plans run the DDIM
   fast mode; XCBS's local replans stay DDPM)
-XCBS-R, XECBS-R (the repair rounds) and bench.py's guide-iteration probe
-(a non-zero MMD_BENCH_GUIDE_STEPS) are not ported: they exit with status 2
-and a message naming what is missing.
+- MMD_BENCH_GUIDE_STEPS: guide iterations a guided step, a probe of
+  their share of the time (default 0: the reference's 20; bench.py:39-43)
 
 The planners are built as `bench.py:45-74` builds them: the flagship
 checkpoint, its training normalizer, planner i seeded seed * 1000 + i, all
@@ -20,10 +21,10 @@ search state is timed, and one JSON line is printed with `bench.py`'s keys:
 metric, value (wall seconds), unit, success, collision_free,
 ct_expansions, device_s (host seconds waiting on the card), host_s,
 device_calls, device_<phase>_s, unet_evals, `sampler` when it is not
-ddpm (as bench.py:177-178), and `device` (the card's name
-and power limit from nvidia-smi). It leaves out `vs_baseline`, a TPU
-target, and `mfu_pct`, a TPU peak. It needs a CUDA card and exits with
-status 2 without one.
+ddpm and `n_guide_steps` when set (as bench.py:177-180), and `device`
+(the card's name and power limit from nvidia-smi). It leaves out
+`vs_baseline`, a TPU target, and `mfu_pct`, a TPU peak. It needs a CUDA
+card and exits with status 2 without one.
 """
 from __future__ import annotations
 
@@ -37,43 +38,28 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLANNERS = {"CBS": (False, False), "ECBS": (True, False), "XCBS": (False, True),
-            "XECBS": (True, True)}
-# What a variant of bench.py needs that the port does not have yet.
-NOT_PORTED = {
-    "XCBS-R": "the repair rounds of mmd_tpu/planners/multi_agent/cbs.py "
-              "(root_repair_rounds, conflict_detection.team_reselect/repair_accept)",
-    "XECBS-R": "the repair rounds of mmd_tpu/planners/multi_agent/cbs.py "
-               "(root_repair_rounds, conflict_detection.team_reselect/repair_accept)",
-    "MMD_BENCH_GUIDE_STEPS": "the guide-iteration probe of bench.py:39-43, 75-78 (the "
-                             "planners run the reference's 20 iterations a step)",
-}
-
-
-class NotPorted(Exception):
-    pass
+            "XECBS": (True, True), "XCBS-R": (False, True), "XECBS-R": (True, True)}
 
 
 def settings(env=os.environ) -> dict:
-    """The run's settings from the environment; NotPorted for a variant
-    the port lacks, ValueError for an unknown one."""
+    """The run's settings from the environment; ValueError for an unknown
+    planner or sampler."""
     planner = env.get("MMD_BENCH_PLANNER", "XECBS")
     sampler = env.get("MMD_BENCH_SAMPLER", "ddpm")
-    probe = "MMD_BENCH_GUIDE_STEPS" if int(env.get("MMD_BENCH_GUIDE_STEPS", "0")) else None
-    for name in (planner, sampler, probe):
-        if name in NOT_PORTED:
-            raise NotPorted(f"{name} needs {NOT_PORTED[name]}, which mmd_torch does not "
-                            "port yet")
     if planner != "PP" and planner not in PLANNERS:
         raise ValueError(f"unknown MMD_BENCH_PLANNER {planner!r}")
     if sampler not in ("ddpm", "ddim"):
         raise ValueError(f"unknown MMD_BENCH_SAMPLER {sampler!r}")
     return {"agents": int(env.get("MMD_BENCH_AGENTS", "10")), "planner": planner,
             "bf16": env.get("MMD_BENCH_BF16", "1") not in ("0", "", "false"),
-            "sampler": sampler}
+            "sampler": sampler, "repair": int(env.get("MMD_BENCH_REPAIR", "1")),
+            "guide_steps": int(env.get("MMD_BENCH_GUIDE_STEPS", "0"))}
 
 
-def build_planners(s: dict, seed: int = 0):
-    """The team's planners on the card, starts and goals (bench.py:45-74)."""
+def build_planners(s: dict, seed: int = 0, device: str = "cuda"):
+    """The team's planners, starts and goals (bench.py:45-78)."""
+    import dataclasses
+
     from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
     from mmd_torch.planners.single_agent.mpd import load_planners
 
@@ -81,7 +67,10 @@ def build_planners(s: dict, seed: int = 0):
     planners = load_planners(os.path.join(ROOT, "data_trained_models"),
                              os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
                              starts, goals, seeds=[seed * 1000 + i for i in range(len(starts))],
-                             device="cuda", bf16=s["bf16"], sampler=s["sampler"])
+                             device=device, bf16=s["bf16"], sampler=s["sampler"])
+    if s["guide_steps"] > 0:
+        for p in planners:
+            p.cfg = dataclasses.replace(p.cfg, n_guide_steps=s["guide_steps"])
     return planners, starts, goals
 
 
@@ -92,7 +81,9 @@ def make_team_planner(s: dict, planners, starts, goals):
     if s["planner"] == "PP":
         return PrioritizedPlanning(planners, starts, goals)
     is_ecbs, is_xcbs = PLANNERS[s["planner"]]
-    return CBS(planners, starts, goals, is_ecbs=is_ecbs, is_xcbs=is_xcbs)
+    repair = s["repair"] if s["planner"].endswith("-R") else 0
+    return CBS(planners, starts, goals, is_ecbs=is_ecbs, is_xcbs=is_xcbs,
+               root_repair_rounds=repair)
 
 
 def card() -> str:
@@ -102,16 +93,10 @@ def card() -> str:
 
 
 def main() -> int:
-    try:
-        s = settings()
-    except NotPorted as e:
-        print(f"mmd_torch.bench: {e}", file=sys.stderr)
-        return 2
+    s = settings()
     if not torch.cuda.is_available():
         print("mmd_torch.bench: needs a CUDA card", file=sys.stderr)
         return 2
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     from mmd_torch.experiments.status import TrialSuccessStatus
     from mmd_torch.ops.build import load_kernels
     from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
@@ -138,6 +123,7 @@ def main() -> int:
         "plans_fresh": int(timing["plans_fresh"]), "plans_local": int(timing["plans_local"]),
         "bf16": s["bf16"],
         **({"sampler": s["sampler"]} if s["sampler"] != "ddpm" else {}),
+        **({"n_guide_steps": s["guide_steps"]} if s["guide_steps"] > 0 else {}),
         "device": card(),
     }
     print(json.dumps(result))

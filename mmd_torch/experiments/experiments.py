@@ -35,9 +35,9 @@ FOREIGN_PACKAGES = ("mmd_tpu", "jax", "jaxlib", "flax")
 @dataclasses.dataclass
 class MultiAgentPlanningSingleTrialConfig:
     """reference: experiments.py:122-166. `frontier_width`, `repair_period`
-    and `greedy_iters` (the speculative search) and `render_animation`
-    are kept so that configs pair with JAX's; `run_multi_agent_trial`
-    refuses them until they are ported."""
+    and `greedy_iters` reach a CBS team's search; `render_animation` is
+    kept so that configs pair with JAX's, and `run_multi_agent_trial`
+    refuses it until rendering is ported."""
 
     time_str: Optional[str] = None
     trial_number: int = 0

@@ -8,7 +8,7 @@ gets an `MPD` in its tile's frame, a longer skeleton an `MPDEnsemble` in
 the global frame; agent i starts `stagger_dt * i` steps late; the
 reference task spans every tile of the grid. Not ported yet: the frame
 of a successful trial (mmd_single_trial.png) and its animation, which
-wait for `viz/` (ROADMAP.md Queue 1 item 4).
+wait for `viz/` (ROADMAP.md Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -143,12 +143,14 @@ def build_multi_agent_trial(planner_class: str, start_l_local, goal_l_local,
                             registry: ModelRegistry, stagger_dt: int = 0,
                             trial_number: int = 0,
                             diffusion_cfg: Optional[DiffusionConfig] = None,
-                            bf16: bool = False) -> TrialTeam:
+                            bf16: bool = False,
+                            search_kw: Optional[dict] = None) -> TrialTeam:
     """The planner construction of run_multi_agent_trial (JAX trial.py:156-213;
     reference: inference_multi_agent.py:163-254): global starts and goals
     (the problem's are in the frame of the agent's first and last tile),
     agent i's planner over its skeleton seeded seed + i + 1009 * trial,
-    start times stagger_dt * i, the reference task over the whole grid."""
+    start times stagger_dt * i, the reference task over the whole grid;
+    search_kw goes to a CBS team (`search_kwargs`)."""
     n = len(start_l_local)
     start_l = [np.asarray(start_l_local[i], np.float32) + tile_transform(skeletons[i][0])
                for i in range(n)]
@@ -174,7 +176,7 @@ def build_multi_agent_trial(planner_class: str, start_l_local, goal_l_local,
     start_time_l = [stagger_dt * i for i in range(n)]
     team = make_team_planner(planner_class, planners, start_l, goal_l,
                              start_time_l=start_time_l, reference_robot=planners[0].robot,
-                             reference_task=reference_task)
+                             reference_task=reference_task, **(search_kw or {}))
     return TrialTeam(team=team, planners=planners, start_l=start_l, goal_l=goal_l,
                      start_time_l=start_time_l, model_ids_l=model_ids_l,
                      transforms_l=transforms_l)
@@ -232,17 +234,21 @@ def score_solution(paths_l: List[np.ndarray], status: TrialSuccessStatus,
 def refuse_unported(cfg: MultiAgentPlanningSingleTrialConfig, mesh=None) -> None:
     """Raise ValueError for a knob of the JAX trial that the port lacks,
     naming the ROADMAP.md item that ports it, rather than ignore it."""
-    search = {k: getattr(cfg, k) for k in ("frontier_width", "repair_period", "greedy_iters")}
-    if search["frontier_width"] > 1 or search["repair_period"] > 0 or search["greedy_iters"] > 0:
-        raise ValueError(f"{search}: the speculative search and repair rounds are not "
-                         f"ported (ROADMAP.md Queue 1 item 3); use frontier_width=1, "
-                         f"repair_period=0, greedy_iters=0")
     if mesh is not None:
         raise ValueError("mesh: sharding a team over devices is not ported "
-                         "(ROADMAP.md Queue 1 item 4, parallel/sharding.py)")
+                         "(ROADMAP.md Queue 1 item 3, parallel/sharding.py)")
     if cfg.render_animation:
         raise ValueError("render_animation: rendering is not ported "
-                         "(ROADMAP.md Queue 1 item 4, viz/)")
+                         "(ROADMAP.md Queue 1 item 3, viz/)")
+
+
+def search_kwargs(cfg: MultiAgentPlanningSingleTrialConfig) -> dict:
+    """The CBS knobs of the trial's config, for a CBS team only (JAX
+    trial.py:201-209); `CBS` owns their defaults."""
+    if cfg.multi_agent_planner_class == "PP":
+        return {}
+    return {"frontier_width": cfg.frontier_width, "repair_period": cfg.repair_period,
+            "greedy_iters": cfg.greedy_iters}
 
 
 def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
@@ -268,7 +274,7 @@ def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
         cfg.multi_agent_planner_class, cfg.start_state_pos_l, cfg.goal_state_pos_l,
         cfg.global_model_ids, cfg.agent_skeleton_l, registry,
         stagger_dt=cfg.stagger_start_time_dt, trial_number=cfg.trial_number,
-        diffusion_cfg=diffusion_cfg, bf16=cfg.bf16)
+        diffusion_cfg=diffusion_cfg, bf16=cfg.bf16, search_kw=search_kwargs(cfg))
     device = torch.device(registry.device)
     if device.type == "cuda":
         from mmd_torch.ops.build import load_kernels

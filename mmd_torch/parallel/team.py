@@ -14,6 +14,9 @@ the device:
   i plans under soft balls around the chosen (least-cost) paths of the
   agents before it; an agent whose batch has no free trajectory plans
   again with every ball masked.
+- `plan_fresh_team_soft`: a Jacobi repair round (team.py:318-337): every
+  agent plans fresh under its own soft group (`team_soft_paths`), balls
+  around the other agents' current paths.
 The chosen row is gathered with a device index. Only the ECBS root reads
 the device inside its loop: one flag per agent, whether its batch has a
 free trajectory, through the caller's `read`.
@@ -36,6 +39,8 @@ from mmd_torch.costs.guide import GuideData
 from mmd_torch.models.diffusion import HardConds, SamplerNoise
 from mmd_torch.planners.multi_agent.conflict_detection import (
     candidate_conflict_counts,
+    least_conflicts,
+    team_candidate_counts,
     team_conflict_summary,
 )
 from mmd_torch.planners.single_agent.mpd import MPD, PlanResult
@@ -267,3 +272,54 @@ def plan_sequential_root_soft(team: PrioritizedTeam, noise_l: Sequence[SamplerNo
         outs.append((res, res.idx_best))
         clock.mark()
     return _team_result(outs, sel_pos, team.margin, clock)
+
+
+def team_soft_paths(pos: torch.Tensor, radius: float,
+                    weight: Optional[float] = None) -> SoftPathConstraints:
+    """Every agent's soft group from the team's chosen positions
+    (team.py:366-387): pos (A, T, 2) -> SoftPathConstraints whose fields
+    lead with the agent: agent i's A - 1 rows are the other agents' paths,
+    masked to t in [1, T - 1]; radius and weight (A,). Built on pos's
+    device."""
+    A, T, _ = pos.shape
+    if weight is None:
+        weight = default_params.weight_grad_cost_soft_constraints
+    kw = dict(dtype=torch.float32, device=pos.device)
+    points = torch.stack([torch.cat([pos[:i], pos[i + 1:]]) for i in range(A)])
+    live = (torch.arange(T, device=pos.device) >= 1).to(torch.float32)
+    return SoftPathConstraints(points=points.to(torch.float32),
+                               mask=live.expand(A, A - 1, T).contiguous(),
+                               radius=torch.full((A,), float(radius), **kw),
+                               weight=torch.full((A,), float(weight), **kw))
+
+
+class TeamPlans(NamedTuple):
+    """Every agent's batch of one team pass: trajs_final (A, B, H, D) and
+    free_mask (A, B)."""
+
+    trajs_final: torch.Tensor
+    free_mask: torch.Tensor
+
+
+def plan_fresh_team_soft(team: PrioritizedTeam, soft_team: SoftPathConstraints,
+                         noise_l: Sequence[SamplerNoise]) -> TeamPlans:
+    """A Jacobi repair round's plans (team.py:318-337): agent i plans fresh
+    with noise_l[i] and no constraint but its own soft group, soft_team's
+    i-th rows (`team_soft_paths`), without a host sync."""
+    res = [team.plan_under(i, noise, SoftPathConstraints(
+        points=soft_team.points[i], mask=soft_team.mask[i], radius=soft_team.radius[i],
+        weight=soft_team.weight[i])) for i, noise in enumerate(noise_l)]
+    return TeamPlans(trajs_final=torch.stack([r.trajs_final for r in res]),
+                     free_mask=torch.stack([r.free_mask for r in res]))
+
+
+def team_select_by_conflicts(cand_all: torch.Tensor, free_all: torch.Tensor,
+                             prev_pos: torch.Tensor, margin: float):
+    """Per-agent least-collisions selection against the team's previous
+    paths (team.py:340-363): cand_all (A, B, T, 2), free_all (A, B),
+    prev_pos (A, T, 2) -> (ix (A,), its count (A,), the count of the
+    agent's current path (A,)); the count is INT32_MAX where an agent has
+    no free candidate. No search calls it (JAX's repair does not either):
+    it is JAX's public helper, held against JAX's in the tests."""
+    ix, new_counts = least_conflicts(cand_all, free_all, prev_pos, margin)
+    return ix, new_counts, team_candidate_counts(prev_pos[:, None], prev_pos, margin)[:, 0]

@@ -2,15 +2,17 @@
 CBS and PP share.
 
 Twin of `mmd_tpu/planners/multi_agent/cbs.py` (reference:
-mmd/planners/multi_agent/cbs.py) without its speculative programs (the
-greedy CT descent, the frontier and the repair rounds): `SearchState` (the
-CT node, cbs.py:63-106) with lazy row updates; `CBSBase`, which holds the
-team's fields, validates its starts and goals, summarizes a node's
-conflicts on the device and builds the per-waypoint constraints from other
-agents' paths (`PrioritizedPlanning` subclasses it too); and `CBS`, the
-search of CBS, ECBS, XCBS and XECBS in the reference's order. A team's
-paths are one (n_agents, B, H, D) tensor on the device, and the search
-reads the device only through `to_host`, mostly by `CBSBase._fetch`.
+mmd/planners/multi_agent/cbs.py): `SearchState` (the CT node,
+cbs.py:63-106) with lazy row updates; `CBSBase`, which holds the team's
+fields, validates its starts and goals, summarizes a node's conflicts on
+the device and builds the per-waypoint constraints from other agents'
+paths (`PrioritizedPlanning` subclasses it too); and `CBS`, the search of
+CBS, ECBS, XCBS and XECBS in JAX's order: the fused root and greedy
+descent where the team allows it, then per popped node an optional Jacobi
+repair round, the parallel-descent frontier, the greedy descent, and last
+the one-node expansion. A team's paths are one (n_agents, B, H, D) tensor
+on the device, and the search reads the device only through `to_host`,
+mostly by `CBSBase._fetch`.
 """
 from __future__ import annotations
 
@@ -37,15 +39,20 @@ from mmd_torch.parallel.team import (
     PrioritizedTeam,
     _batchable,
     plan_fresh_team,
+    plan_fresh_team_soft,
     plan_sequential_root_soft,
     stack_hard_conds,
+    team_soft_paths,
 )
+from mmd_torch.planners.multi_agent import fused
 from mmd_torch.planners.multi_agent.conflict_detection import (
     densify_positions,
     find_conflicts,
     pad_team_positions,
+    repair_accept,
     select_candidate_and_conflicts,
     team_conflict_summary,
+    team_reselect,
 )
 from mmd_torch.planners.multi_agent.fused import (
     expand_child_ensemble,
@@ -86,7 +93,14 @@ class SearchState:
     """A constraint-tree node (reference: cbs.py:63-106). Its paths are one
     device tensor. A row update is deferred until `paths_all` is read: a
     search makes many children that never leave the open list. A copy
-    shares the tensor; a read builds a new one, so copies stay isolated."""
+    shares the tensor; a read builds a new one, so copies stay isolated.
+
+    A pending update may be a row of a speculative chain's output
+    (k, 2, B, H, D), which it keeps on the device while the node lives. A
+    node holds at most MAX_PENDING of them (ADVICE.md:3): the update past
+    that applies the ones before it first, which changes no value."""
+
+    MAX_PENDING = 16
 
     def __init__(self, paths_all: Optional[torch.Tensor], ix_best: List[int],
                  constraints: Optional[Dict[int, List[MultiPointConstraint]]] = None):
@@ -103,6 +117,10 @@ class SearchState:
 
     @property
     def paths_all(self) -> Optional[torch.Tensor]:
+        self._apply_pending()
+        return self._paths
+
+    def _apply_pending(self):
         if self._pending:
             rows = {}
             for agent, ref in self._pending:
@@ -112,7 +130,6 @@ class SearchState:
                 paths[agent] = ref[0][ref[1]] if isinstance(ref, tuple) else ref
             self._paths = paths
             self._pending = []
-        return self._paths
 
     @paths_all.setter
     def paths_all(self, value: torch.Tensor):
@@ -123,6 +140,8 @@ class SearchState:
         """Defer `paths_all[agent_id] = traj` until paths_all is read."""
         if self._paths is None:
             raise ValueError("a path update needs a node with paths")
+        if len(self._pending) >= self.MAX_PENDING:
+            self._apply_pending()
         self._pending.append((agent_id, traj_ref))
 
     @property
@@ -292,32 +311,58 @@ def _plannable(constraint_l) -> List[MultiPointConstraint]:
 
 class CBS(CBSBase):
     """Conflict-Based Search over guided-diffusion planners (reference:
-    mmd/planners/multi_agent/cbs.py), in the reference's host-driven order:
-    pop the open node with the fewest conflicts, expand its first
-    conflict into one child per agent, each replanned on the device.
-    The four variants (inference_multi_agent.py:112-113):
-    CBS (is_ecbs=False, is_xcbs=False), ECBS (is_ecbs: soft balls around
-    the other agents' paths), XCBS (is_xcbs: a child replans locally from
-    its parent's batch), XECBS (both).
+    mmd/planners/multi_agent/cbs.py) in JAX's order (cbs.py:454-644): pop
+    the open node with the fewest conflicts and expand its first conflict
+    into one child per agent, each replanned on the device. The four
+    variants (inference_multi_agent.py:112-113): CBS (is_ecbs=False,
+    is_xcbs=False), ECBS (is_ecbs: soft balls around the other agents'
+    paths), XCBS (is_xcbs: a child replans locally from its parent's
+    batch), XECBS (both).
+
+    Beyond the reference, as JAX's CBS: a team of batchable planners on a
+    uniform clock plans its root and GREEDY_ITERS speculative greedy
+    expansions from it together (`fused.root_greedy`), and a popped node
+    runs such a chain (`fused.greedy_expand`) before the one-node
+    `expand`; a step is accepted only while its node is a fewest-conflicts
+    minimum of the open list. `frontier_width` > 1 runs the chains of the
+    top open nodes, a power of two of them, and accepts each chain whole;
+    `root_repair_rounds` replaces the root by a fresh team root improved by
+    Jacobi repair rounds; `repair_period` > 0 runs one repair round on a
+    popped node every that many expansions. `greedy_iters` overrides
+    GREEDY_ITERS for this search (0 or None keeps the class's).
 
     A root and an expansion each read the device once (`_fetch`, phase
-    "root", "children", "expand" or "summary"); the ECBS root also reads one
-    flag per agent. `final` is the node `plan()` returned.
+    "root", "children", "expand", "summary", "greedy", "frontier" or
+    "repair"); the ECBS root also reads one flag per agent, and a chain one
+    flag per step; `timing` also counts the accepted greedy steps
+    ("greedy_steps") and the frontier's rounds ("frontier_rounds"). `final`
+    is the node `plan()` returned; `greedy_audit`,
+    when a list, gets the events of the greedy steps ("step", "freeze",
+    "starved", "stop").
     """
+
+    GREEDY_ITERS = 8
+    # Constraint-buffer rows of a chain: the small one while a node's
+    # agents hold few constraints, the large one for deep searches.
+    GREEDY_KBUFS = (16, 48)
 
     def __init__(self, low_level_planner_l: Sequence, start_l: Sequence,
                  goal_l: Sequence, start_time_l: Optional[List[int]] = None,
                  is_xcbs: bool = False, is_ecbs: bool = True,
                  reference_robot=None, reference_task=None,
                  validate_start_goal: bool = True, verbose: bool = False,
+                 root_repair_rounds: int = 0,
                  choose_path_strategy: Optional[str] = None,
-                 conflict_types: Tuple = (PointConflict,)):
+                 conflict_types: Tuple = (PointConflict,),
+                 frontier_width: int = 1, greedy_iters: Optional[int] = None,
+                 repair_period: int = 0):
         super().__init__(low_level_planner_l, start_l, goal_l, start_time_l=start_time_l,
                          reference_robot=reference_robot, reference_task=reference_task,
                          validate_start_goal=validate_start_goal)
         self.is_xcbs = is_xcbs
         self.is_ecbs = is_ecbs
         self.verbose = verbose
+        self.root_repair_rounds = int(root_repair_rounds)
         # Conflict types to detect (cbs.py:118-130); with EdgeConflict the
         # paths are densified x2 before detection (cbs.py:185-245).
         self.conflict_types = tuple(conflict_types)
@@ -327,6 +372,18 @@ class CBS(CBSBase):
                                      default_params.low_level_choose_path_from_batch_strategy)
         if self.choose_path_strategy not in ("least_collisions", "least_cost"):
             raise ValueError(f"choose_path_strategy {self.choose_path_strategy!r}")
+        self.frontier_width = max(1, int(frontier_width))
+        if self.frontier_width & (self.frontier_width - 1):
+            self._log(
+                f"frontier_width={self.frontier_width} is not a power of "
+                "two; frontier batches are power-of-two shaped, so it runs "
+                f"as width {1 << (self.frontier_width.bit_length() - 1)}.")
+        if greedy_iters:
+            self.GREEDY_ITERS = int(greedy_iters)
+        self.repair_period = int(repair_period)
+        self._last_repair = 0
+        self.greedy_audit: Optional[list] = None
+        self._team_cache: Optional[PrioritizedTeam] = None
         self.open_l: List[SearchState] = []
         self.final: Optional[SearchState] = None
 
@@ -376,29 +433,39 @@ class CBS(CBSBase):
     def plan(self, runtime_limit: float = default_params.runtime_limit,
              anytime: bool = True):
         """(best_path_l, n_ct_expansions, TrialSuccessStatus, n_conflicts)
-        (reference: cbs.py:302-389; JAX cbs.py:429-644 without the
-        speculative programs).
+        (reference: cbs.py:302-389; JAX cbs.py:454-644).
 
         The runtime limit counts wall seconds from the start of the search;
-        the caller builds the kernels before it (`ops.build.load_kernels`).
-        The deadline is checked before each pop, so a 0-conflict node made
-        past it is not a success. With `anytime`, a search that ran out of
-        time returns the node with the fewest conflicts seen, popped or
-        open; its status stays FAIL_RUNTIME_LIMIT."""
+        the caller builds the kernels before it (`ops.build.load_kernels`),
+        and the port compiles nothing else, so all of it is search (JAX
+        leaves its compile seconds out). The deadline is checked before
+        each pop, so a 0-conflict node made past it is not a success. With
+        `anytime`, a search that ran out of time returns the node with the
+        fewest conflicts seen, popped or open; its status stays
+        FAIL_RUNTIME_LIMIT."""
         self._reset_timing()
-        self.open_l, self.final = [], None
+        self.open_l, self.final, self._last_repair = [], None, 0
         t_start = time.perf_counter()
 
         def over_limit() -> bool:
             return time.perf_counter() - t_start > runtime_limit
 
-        status, root = self._plan_root(over_limit)
-        state = root
+        status = TrialSuccessStatus.UNKNOWN
         num_expansions = 0
-        if status == TrialSuccessStatus.UNKNOWN:
-            if not root.summarized or self._densify > 1:
-                self._summarize(root)
-            self.open_l.append(root)
+        if self._root_greedy_eligible():
+            # The root and a greedy chain from it (cbs.py:469-487).
+            root, num_expansions = self._plan_root_greedy()
+            if root is None:
+                status, root = TrialSuccessStatus.FAIL_NO_SOLUTION, SearchState(None, [])
+            elif num_expansions == 0 or root.n_conflicts == 0:
+                self.open_l.append(root)  # else its children are open
+        else:
+            status, root = self._plan_root(over_limit)
+            if status == TrialSuccessStatus.UNKNOWN:
+                if not root.summarized or self._densify > 1:
+                    self._summarize(root)
+                self.open_l.append(root)
+        state = root
 
         best_seen = state if state.has_paths else None
         while status == TrialSuccessStatus.UNKNOWN:
@@ -416,8 +483,26 @@ class CBS(CBSBase):
             if state.n_conflicts == 0:
                 status = TrialSuccessStatus.SUCCESS
                 break
-            self.expand(state)
-            num_expansions += 1
+            if (self.repair_period > 0
+                    and num_expansions - self._last_repair >= self.repair_period
+                    and self._repair_eligible()):
+                # One Jacobi round on the popped node, counted as one
+                # expansion; its node opens only if it has fewer conflicts.
+                self._last_repair = num_expansions
+                repaired, _ = self._repair_root(state)
+                num_expansions += 1
+                if repaired.n_conflicts < state.n_conflicts:
+                    self.open_l.append(repaired)
+                    if repaired.n_conflicts < best_seen.n_conflicts:
+                        best_seen = repaired
+            n_frontier = self._expand_frontier(state) if self.frontier_width > 1 else 0
+            if n_frontier:
+                num_expansions += n_frontier
+            elif n_greedy := self._expand_greedy(state):
+                num_expansions += n_greedy
+            else:
+                self.expand(state)
+                num_expansions += 1
 
         if anytime and status == TrialSuccessStatus.FAIL_RUNTIME_LIMIT:
             cands = ([best_seen] if best_seen is not None else []) + [
@@ -431,28 +516,39 @@ class CBS(CBSBase):
         best_path_l = global_pad_paths(state.best_paths(), self.start_time_l)
         return best_path_l, num_expansions, status, state.n_conflicts
 
+    def _team(self) -> PrioritizedTeam:
+        """What a team pass shares (the planners are batchable), made once."""
+        if self._team_cache is None:
+            self._team_cache = PrioritizedTeam.of(self.low_level_planner_l, self.margin)
+        return self._team_cache
+
+    def _read_free(self, free_any: torch.Tensor) -> bool:
+        """The ECBS root's read of an agent's flag "the batch has a free
+        trajectory"; a starved agent replans without the balls."""
+        free = bool(self._fetch(free_any, phase="root"))
+        if not free:
+            self._log("Soft-constrained root starved; replanning unconstrained.")
+            self._count_plans(False)
+        return free
+
     def _plan_root(self, over_limit):
         """(status, root): UNKNOWN with the root node, or a failure. A team
         of batchable planners plans its root in one device pass: every
-        agent fresh (CBS, XCBS), or the ECBS sequential soft pass on a
-        uniform clock; the rest plan agent by agent (cbs.py:499-584)."""
+        agent fresh (CBS, XCBS, and any root with repair rounds, which the
+        rounds then improve), or the ECBS sequential soft pass on a uniform
+        clock; the rest plan agent by agent (cbs.py:499-584)."""
         root = SearchState(None, [])
         planners = self.low_level_planner_l
-        if _batchable(planners) and (not self.is_ecbs or self.uniform_time):
-            team = PrioritizedTeam.of(planners, self.margin)
+        # With repair rounds every root is the fresh team's (cbs.py:501-509).
+        fresh = not self.is_ecbs or self.root_repair_rounds > 0
+        if _batchable(planners) and (fresh or self.uniform_time):
+            team = self._team()
             self._count_plans(False, self.num_agents)
-            if not self.is_ecbs:
+            if fresh:
                 out = plan_fresh_team(team, self._team_noise())
             else:
-                def read(free_any: torch.Tensor) -> bool:
-                    free = bool(self._fetch(free_any, phase="root"))
-                    if not free:
-                        self._log("Soft-constrained root starved; replanning unconstrained.")
-                        self._count_plans(False)
-                    return free
-
                 out = plan_sequential_root_soft(team, self._team_noise(), self._team_noise(),
-                                                read)
+                                                self._read_free)
             free_any, ix, summary = self._fetch((out.free_any, out.ix, out.summary),
                                                 phase="root")
             self.timing["root_agent_s"] = out.clock.seconds()
@@ -462,6 +558,14 @@ class CBS(CBSBase):
             if self.uniform_time and self._densify == 1:
                 self._set_conflicts(root, *summary)
                 root.summarized = True
+            if self.root_repair_rounds > 0:
+                # Reselect among the sampled batches, k repair rounds, and
+                # reselect again (cbs.py:538-546).
+                free_all = out.free_mask
+                root = self._reselect_root(root, free_all)
+                for _ in range(self.root_repair_rounds):
+                    root, free_all = self._repair_root(root, free_all)
+                root = self._reselect_root(root, free_all)
             return TrialSuccessStatus.UNKNOWN, root
 
         path_tiles: List[torch.Tensor] = []
@@ -490,6 +594,283 @@ class CBS(CBSBase):
                 return TrialSuccessStatus.FAIL_RUNTIME_LIMIT, root
         root.paths_all = torch.stack(path_tiles)
         return TrialSuccessStatus.UNKNOWN, root
+
+    # ------------------------------------------------------ greedy search
+    def _greedy_kbuf(self, state: SearchState) -> Optional[int]:
+        """The smallest constraint buffer that takes the node's
+        constraints and one more, or None where the greedy chain does not
+        apply (cbs.py:655-677): a uniform clock, undensified point
+        conflicts, the least-collisions choice, batchable MPD planners,
+        and only hard one-point constraints."""
+        if not (self.uniform_time and self._densify == 1
+                and self.choose_path_strategy == "least_collisions"
+                and isinstance(state.first_conflict, PointConflict)):
+            return None
+        if not _batchable(self.low_level_planner_l):
+            return None
+        max_cons = 0
+        for cons_l in state.constraints.values():
+            max_cons = max(max_cons, len(cons_l))
+            if any(not isinstance(c, MultiPointConstraint) or len(c.q_l) != 1 or c.is_soft
+                   for c in cons_l):
+                return None
+        for kbuf in self.GREEDY_KBUFS:
+            if max_cons + 1 <= kbuf:
+                return kbuf
+        return None
+
+    def _root_greedy_eligible(self) -> bool:
+        """The fused root's gate (cbs.py:679-692): `_greedy_kbuf` of a
+        constraint-free node with a point conflict, and no repair rounds."""
+        if self.root_repair_rounds > 0:
+            return False
+        probe = SearchState(None, [])
+        z = np.zeros(2)
+        probe.first_conflict = PointConflict(agent_ids=[0, 1], p_l=[z, z], q_l=[z, z],
+                                             t_from=0, t_to=0)
+        return self._greedy_kbuf(probe) is not None
+
+    def _chain_noise(self) -> List[List[SamplerNoise]]:
+        """A chain's 2k children's draws, [step][child], from the team
+        generator before the chain runs (cbs.py:789): where the chain stops
+        changes no later draw."""
+        return [[self._draw(self.is_xcbs) for _ in range(2)] for _ in range(self.GREEDY_ITERS)]
+
+    def _frozen(self, phase: str):
+        """A chain's read of its flag "the carry froze"."""
+        return lambda done: bool(self._fetch(done, phase=phase))
+
+    def _carry(self, state: SearchState, K: int) -> fused.Carry:
+        """The node on the device for a chain: its paths, chosen indices,
+        its constraints in buffers of K rows (cbs.py:770-777) and its first
+        conflict."""
+        A, dev = self.num_agents, self.device
+        cons_q = np.zeros((A, K, 2), np.float32)
+        cons_t = np.zeros((A, K, 2), np.float32)
+        cons_n = np.zeros((A,), np.int32)
+        for agent_id, cons_l in state.constraints.items():
+            for k, c in enumerate(cons_l):
+                cons_q[agent_id, k] = np.asarray(c.q_l[0], np.float32)[:2]
+                cons_t[agent_id, k] = c.t_range_l[0]
+            cons_n[agent_id] = len(cons_l)
+        fc = state.first_conflict
+        ints = to_device([state.n_conflicts, fc.t_from, *fc.agent_ids], dev, torch.int64)
+        return fused.Carry(
+            paths=state.paths_all, ix=to_device(state.ix_best, dev, torch.int64),
+            cons_q=to_device(cons_q, dev), cons_t=to_device(cons_t, dev),
+            cons_n=to_device(cons_n, dev),
+            conflict=(ints[0].to(torch.int32), ints[1], ints[2], ints[3],
+                      to_device(np.asarray(fc.q_l[0], np.float32)[:2], dev)))
+
+    def _plan_root_greedy(self):
+        """The root, its summary and a greedy chain from it
+        (`fused.root_greedy`, cbs.py:694-746), read once at the end (and a
+        flag an agent in the ECBS root, a flag a step in the chain).
+        Returns (the root, or None where an agent has no free sample;
+        accepted expansions). With accepted > 0 the root's greedy children
+        are already open (`_process_greedy`)."""
+        team = self._team()
+        root_noise = self._team_noise()
+        fallback = self._team_noise() if self.is_ecbs else []
+        chain_noise = self._chain_noise()
+        self._count_plans(False, self.num_agents)
+        out, records, n_steps = fused.root_greedy(
+            team, root_noise, fallback, chain_noise, self.GREEDY_KBUFS[0],
+            use_soft=self.is_ecbs, local=self.is_xcbs, k_iters=self.GREEDY_ITERS,
+            sequential_root=self.is_ecbs, read_free=self._read_free,
+            frozen=self._frozen("greedy"))
+        self._count_plans(self.is_xcbs, 2 * n_steps)
+        free_any, ix, summary, scalars = self._fetch(
+            (out.free_any, out.ix, out.summary, tuple(records[1:])), phase="root")
+        self.timing["root_agent_s"] = out.clock.seconds()
+        if not free_any.all():
+            return None, 0
+        root = SearchState(out.trajs, [int(i) for i in ix])
+        self._set_conflicts(root, *summary)
+        root.summarized = True
+        if root.n_conflicts == 0:
+            return root, 0
+        return root, self._process_greedy(root, records.trajs, scalars)
+
+    def _expand_greedy(self, state: SearchState) -> int:
+        """A greedy chain from the popped node (`fused.greedy_expand`,
+        cbs.py:748-808), its steps checked against the open list. Returns
+        the accepted expansions (0: the caller expands the node itself)."""
+        K = self._greedy_kbuf(state)
+        if K is None:
+            return 0
+        records, n_steps = fused.greedy_expand(
+            self._team(), self._chain_noise(), self._carry(state, K), self.is_ecbs,
+            self.is_xcbs, self.GREEDY_ITERS, self._frozen("greedy"))
+        self._count_plans(self.is_xcbs, 2 * n_steps)
+        return self._process_greedy(state, records.trajs,
+                                    self._fetch(tuple(records[1:]), phase="greedy"))
+
+    def _process_greedy(self, state: SearchState, trajs: torch.Tensor, scalars,
+                        validate: bool = True) -> int:
+        """A chain's records against the open list (cbs.py:810-915): each
+        valid step makes its two children, and the chain goes on into the
+        chosen one while it is a fewest-conflicts minimum of the open list
+        and the other child (`<=`; with validate=False, the frontier's, it
+        goes on regardless); else both children open in expansion order. A
+        freeze returns the chain's current node to the open list; a step
+        whose two children starved re-expands its node under ECBS
+        (`expand`, whose hard-only retry recovers them). Returns the
+        accepted steps."""
+        (agents_k, free_k, ix_k, counts_k, t_k, a_k, b_k, mid_k, chosen_k,
+         valid_k) = scalars
+        H_all = state.paths_all.shape[2]
+        accepted = 0
+        parent = state
+        for s in range(len(valid_k)):
+            if not valid_k[s]:
+                if self.greedy_audit is not None:
+                    self.greedy_audit.append(("freeze",))
+                if parent is not state:
+                    self.open_l.append(parent)
+                break
+            if self.greedy_audit is not None:
+                self.greedy_audit.append((
+                    "step", parent.n_conflicts,
+                    min((n.n_conflicts for n in self.open_l), default=None)))
+            t_pad = 2
+            lo = int(np.clip(parent.first_conflict.t_from - t_pad, 0, H_all - 1))
+            hi = int(np.clip(parent.first_conflict.t_to + t_pad, 0, H_all - 1))
+            mid = np.asarray(parent.first_conflict.q_l[0], np.float32)[:2]
+            children: List[Optional[SearchState]] = []
+            for idx in range(2):
+                agent = int(agents_k[s, idx])
+                if not free_k[s, idx]:
+                    self._log("Failed to find valid path in CT node.")
+                    children.append(None)
+                    continue
+                child = parent.get_copy()
+                child.add_constraint(agent, MultiPointConstraint(
+                    q_l=[mid], t_range_l=[(lo, hi)],
+                    radius_l=[default_params.vertex_constraint_radius]))
+                child.add_path_update(agent, (trajs, (s, idx)))
+                child.ix_best[agent] = int(ix_k[s, idx])
+                self._set_conflicts(child, counts_k[s, idx], t_k[s, idx], a_k[s, idx],
+                                    b_k[s, idx], mid_k[s, idx])
+                children.append(child)
+
+            accepted += 1
+            self.timing["greedy_steps"] = self.timing.get("greedy_steps", 0) + 1
+            j = int(chosen_k[s])
+            chosen = children[j]
+            if chosen is None:
+                if self.greedy_audit is not None:
+                    self.greedy_audit.append(("starved",))
+                if self.is_ecbs:
+                    self.expand(parent)  # counted as this step's expansion
+                else:
+                    self.open_l.extend(c for c in children if c is not None)
+                break
+            other = children[1 - j]
+            min_open = min([n.n_conflicts for n in self.open_l]
+                           + ([other.n_conflicts] if other is not None else []),
+                           default=None)
+            if chosen.n_conflicts == 0 or (validate and min_open is not None
+                                           and chosen.n_conflicts > min_open):
+                if self.greedy_audit is not None:
+                    self.greedy_audit.append(("stop", chosen.n_conflicts, min_open))
+                self.open_l.extend(c for c in children if c is not None)
+                break
+            if other is not None:
+                self.open_l.append(other)
+            parent = chosen
+        else:
+            if parent is not state:
+                self.open_l.append(parent)  # the last chosen node, unexpanded
+        return accepted
+
+    def _expand_frontier(self, state: SearchState) -> int:
+        """Greedy chains from the popped node and the next open nodes, up
+        to frontier_width of them, a power of two (cbs.py:917-1039), each
+        accepted whole (validate=False); a chain that froze at once has its
+        node expanded by `expand`. Returns the accepted expansions (0: not
+        two eligible nodes, the caller goes on to the greedy chain)."""
+        if not self.open_l:
+            return 0
+        K0 = self._greedy_kbuf(state)
+        if K0 is None:
+            return 0
+        nodes, rest = [(state, K0)], []
+        for n in self.open_l:  # sorted, every count > 0
+            Kn = None if len(nodes) >= self.frontier_width else self._greedy_kbuf(n)
+            if Kn is None:
+                rest.append(n)
+            else:
+                nodes.append((n, Kn))
+        M = 1
+        while M * 2 <= len(nodes):
+            M *= 2
+        if M < 2:
+            return 0
+        self.open_l = [n for n, _ in nodes[M:]] + rest
+        nodes = nodes[:M]
+        self.timing["frontier_rounds"] = self.timing.get("frontier_rounds", 0) + 1
+        # One buffer size for the chains, over the nodes kept.
+        kbuf = max(k for _, k in nodes)
+        nodes = [n for n, _ in nodes]
+        noise_m = [self._chain_noise() for _ in nodes]
+        outs = fused.frontier_greedy_expand(
+            self._team(), noise_m, [self._carry(n, kbuf) for n in nodes], self.is_ecbs,
+            self.is_xcbs, self.GREEDY_ITERS, self._frozen("frontier"))
+        for _, n_steps in outs:
+            self._count_plans(self.is_xcbs, 2 * n_steps)
+        scalars_m = self._fetch([tuple(r[1:]) for r, _ in outs], phase="frontier")
+        accepted = 0
+        for node, (records, _), scalars in zip(nodes, outs, scalars_m):
+            acc = self._process_greedy(node, records.trajs, scalars, validate=False)
+            if acc == 0:
+                self.expand(node)
+                acc = 1
+            accepted += acc
+        return accepted
+
+    # ------------------------------------------------------------- repair
+    def _repair_eligible(self) -> bool:
+        """A repair round needs the fresh team pass: a uniform clock and
+        batchable planners (cbs.py:1133-1141)."""
+        return self.uniform_time and _batchable(self.low_level_planner_l)
+
+    def _reselect_root(self, root: SearchState, free_all: torch.Tensor,
+                       sweeps: int = 2) -> SearchState:
+        """Each agent's choice among its sampled candidates by Jacobi
+        sweeps (`team_reselect`, cbs.py:1143-1160), one read."""
+        paths = root.paths_all
+        ix, *summary = self._fetch(team_reselect(
+            paths[..., :2], to_device(root.ix_best, self.device, torch.int64), free_all,
+            self.margin, sweeps=sweeps), phase="repair")
+        state = SearchState(paths, [int(i) for i in ix], root.constraints)
+        self._set_conflicts(state, *summary)
+        state.summarized = True
+        return state
+
+    def _repair_root(self, root: SearchState, free_all: Optional[torch.Tensor] = None):
+        """One Jacobi repair round (cbs.py:1162-1210): every agent replans
+        fresh under soft balls around the others' chosen paths
+        (`plan_fresh_team_soft`), and `repair_accept` keeps what improves,
+        one read. Returns (the node, the free masks of the batch each
+        agent's row now holds)."""
+        paths = root.paths_all
+        prev_pos = _best_paths_pos(paths, root.ix_best)
+        soft_team = team_soft_paths(prev_pos, default_params.vertex_constraint_radius)
+        self._count_plans(False, self.num_agents)
+        res = plan_fresh_team_soft(self._team(), soft_team, self._team_noise())
+        accept_d, ix_d, *summary_d = repair_accept(res.trajs_final[..., :2], res.free_mask,
+                                                   prev_pos, self.margin)
+        if free_all is None:
+            free_all = torch.ones(paths.shape[:2], dtype=torch.bool, device=paths.device)
+        new_paths = torch.where(accept_d[:, None, None, None], res.trajs_final, paths)
+        new_free = torch.where(accept_d[:, None], res.free_mask, free_all)
+        accept, ix, *summary = self._fetch((accept_d, ix_d, *summary_d), phase="repair")
+        new_ix = [int(ix[i]) if accept[i] else root.ix_best[i] for i in range(self.num_agents)]
+        state = SearchState(new_paths, new_ix, root.constraints)
+        self._set_conflicts(state, *summary)
+        state.summarized = True
+        return state, new_free
 
     # ------------------------------------------------------------- expand
     def expand(self, state: SearchState):

@@ -86,9 +86,91 @@ def select_candidate_and_conflicts(cand_pos: torch.Tensor, free_mask: torch.Tens
     counts = candidate_conflict_counts(cand_pos, agent_idx, paths_pos, margin)
     masked = torch.where(free_mask, counts, torch.full_like(counts, INT32_MAX))
     ix = torch.argmin(masked)
-    new_paths = paths_pos.clone()
-    new_paths[agent_idx] = cand_pos.index_select(0, ix.reshape(1))[0]
+    new_paths = put_row(paths_pos, agent_idx, cand_pos.index_select(0, ix.reshape(1))[0])
     return (ix, *team_conflict_summary(new_paths, margin))
+
+
+def put_row(paths: torch.Tensor, agent_idx, row: torch.Tensor) -> torch.Tensor:
+    """A copy of paths with row agent_idx replaced by `row`. agent_idx is a
+    Python int, or an index on the device that is never read: a 0-d
+    device tensor used as a Python index would be copied to the host."""
+    if isinstance(agent_idx, torch.Tensor):
+        return paths.index_copy(0, agent_idx.reshape(1), row[None].to(paths.dtype))
+    out = paths.clone()
+    out[agent_idx] = row
+    return out
+
+
+def team_candidate_counts(cand_all: torch.Tensor, paths_pos: torch.Tensor,
+                          margin: float) -> torch.Tensor:
+    """(A, B) int32: `candidate_conflict_counts` of every agent's candidates
+    (cand_all (A, B, T, 2)) against the team's paths_pos (A, T, 2), all
+    agents at once: the same distances, and the other agents' pairs counted
+    by inclusion and exclusion of each agent's row and column."""
+    A = paths_pos.shape[0]
+    hits = distance(cand_all[:, :, None, :, :], paths_pos[None, None]) < margin  # (A,B,A,T)
+    eye = torch.eye(A, dtype=torch.bool, device=paths_pos.device)
+    cnt_agent = (hits & ~eye[:, None, :, None]).sum(dim=(2, 3))
+    coll, _ = team_collision_tensor(paths_pos, margin)
+    pair = coll.sum(dim=0)                                  # (A, A) over time
+    base = pair.sum() - pair.sum(dim=1) - pair.sum(dim=0) + pair.diagonal()
+    return (2 * cnt_agent + base[:, None]).to(torch.int32)
+
+
+def least_conflicts(cand_all: torch.Tensor, free_all: torch.Tensor, paths_pos: torch.Tensor,
+                    margin: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ix (A,), its masked count (A,)): each agent's free candidate with
+    the fewest team conflicts against paths_pos, the first on a tie."""
+    counts = team_candidate_counts(cand_all, paths_pos, margin)
+    masked = torch.where(free_all, counts, torch.full_like(counts, INT32_MAX))
+    ix = torch.argmin(masked, dim=1)
+    return ix, masked.gather(1, ix[:, None])[:, 0]
+
+
+def team_reselect(paths_pos_all: torch.Tensor, ix0: torch.Tensor, free_all: torch.Tensor,
+                  margin: float, sweeps: int = 2):
+    """Jacobi re-selection among the candidates already sampled
+    (conflict_detection.py:138-179): `sweeps` rounds in which every agent
+    takes its free candidate with the fewest conflicts against the others'
+    current choice, a round kept only if the team's total count strictly
+    drops. paths_pos_all (A, B, T, 2), ix0 (A,), free_all (A, B) ->
+    (ix (A,), count, t, a, b, midpoint), on the device."""
+    A = paths_pos_all.shape[0]
+    rows = torch.arange(A, device=paths_pos_all.device)
+
+    def set_count(ix):
+        coll, _ = team_collision_tensor(paths_pos_all[rows, ix], margin)
+        return coll.sum().to(torch.int32)
+
+    ix, count = ix0.to(torch.int64), set_count(ix0)
+    for _ in range(sweeps):
+        new_ix, _ = least_conflicts(paths_pos_all, free_all, paths_pos_all[rows, ix], margin)
+        new_count = set_count(new_ix)
+        better = new_count < count
+        ix = torch.where(better, new_ix, ix)
+        count = torch.where(better, new_count, count)
+    return (ix, *team_conflict_summary(paths_pos_all[rows, ix], margin))
+
+
+def repair_accept(cand_pos_all: torch.Tensor, free_all: torch.Tensor, prev_pos: torch.Tensor,
+                  margin: float):
+    """A Jacobi repair round's choice (conflict_detection.py:182-219): each
+    agent's free candidate with the fewest conflicts against prev_pos
+    (A, T, 2), accepted only if the agent has a free candidate and it
+    strictly beats the agent's current path; the repaired set kept only if
+    its total count does not rise. cand_pos_all (A, B, T, 2), free_all
+    (A, B) -> (accept (A,), ix (A,), count, t, a, b, midpoint) of the
+    resulting set, on the device."""
+    A = cand_pos_all.shape[0]
+    ix, new_counts = least_conflicts(cand_pos_all, free_all, prev_pos, margin)
+    cur = team_candidate_counts(prev_pos[:, None], prev_pos, margin)[:, 0]
+    accept = free_all.any(dim=-1) & (new_counts < cur)
+    rows = torch.arange(A, device=prev_pos.device)
+    new_set = torch.where(accept[:, None, None], cand_pos_all[rows, ix], prev_pos)
+    new = team_conflict_summary(new_set, margin)
+    old = team_conflict_summary(prev_pos, margin)
+    keep = new[0] <= old[0]
+    return (accept & keep, ix, *(torch.where(keep, n, o) for n, o in zip(new, old)))
 
 
 def _stack_positions(paths_l: Sequence) -> torch.Tensor:

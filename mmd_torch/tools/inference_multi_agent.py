@@ -9,7 +9,7 @@ count and a planner, run one trial on the card (`--device cpu` for the
 CPU), save its results.txt and results.pkl under
 `<results_root>/<time>/` (`build/results` by default) and print them. `--mesh_agents` other than 0 and
 `--render_animation` raise `ValueError`: sharding a team and rendering
-are not ported (ROADMAP.md Queue 1 item 4). `--results_root`,
+are not ported (ROADMAP.md Queue 1 item 3). `--results_root`,
 `--device`, `--models_dir` and `--data_dir` are the port's own flags.
 """
 from __future__ import annotations
@@ -44,7 +44,7 @@ def main(argv=None) -> int:
     args = parser().parse_args(argv)
     if args.mesh_agents:
         raise ValueError(f"--mesh_agents {args.mesh_agents}: sharding a team over devices is "
-                         f"not ported (ROADMAP.md Queue 1 item 4, parallel/sharding.py)")
+                         f"not ported (ROADMAP.md Queue 1 item 3, parallel/sharding.py)")
     cfg = MultiAgentPlanningSingleTrialConfig(
         time_str=time.strftime("%y-%m-%d--%H-%M-%S"),
         num_agents=args.num_agents,

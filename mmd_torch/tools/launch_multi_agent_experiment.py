@@ -10,8 +10,8 @@ save under `<results_root>/<time_str>/`; a trial whose results.pkl exists
 is skipped, so `--time_str` of an interrupted sweep resumes it. A trial
 that raises is appended to `<results_root>/error_<time_str>.txt` (JAX's
 line, then the traceback) and the sweep goes on; the command then exits 1. `--frontier_width`,
-`--repair_period` and `--greedy_iters` other than their defaults raise
-`ValueError` before any trial: the speculative search is not ported.
+`--repair_period` and `--greedy_iters` reach every CBS team's search
+(`CBS`, JAX trial.py:201-209), not PP's.
 `--results_root` and `--device` are the port's own flags; `--results_root`
 defaults to `build/results` of the repository and may not name its
 committed `results/` tree, nor hold a `<time_str>` whose results.pkl
@@ -119,11 +119,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--runtime_limit", type=float, default=180.0)
     ap.add_argument("--stagger_dt", type=int, default=0)
     ap.add_argument("--frontier_width", type=int, default=1,
-                    help="not ported: only 1 (the reference's expansion order) runs")
+                    help="CBS: the greedy chains of this many top open nodes a round "
+                         "(a power of two; 1 = the reference's expansion order)")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 UNet inference (guide, posterior and selection stay f32)")
-    ap.add_argument("--repair_period", type=int, default=0, help="not ported: only 0 runs")
-    ap.add_argument("--greedy_iters", type=int, default=0, help="not ported: only 0 runs")
+    ap.add_argument("--repair_period", type=int, default=0,
+                    help="CBS: a Jacobi repair round on the popped node every N expansions "
+                         "(0 = off)")
+    ap.add_argument("--greedy_iters", type=int, default=0,
+                    help="CBS: steps of a speculative greedy chain (0 = CBS.GREEDY_ITERS)")
     ap.add_argument("--time_str", default=None,
                     help="reuse <results_root>/<time_str> to resume (done trials skip)")
     add_registry_args(ap)

@@ -6,7 +6,7 @@
 The twin of `scripts/launch_multi_tile_experiment.py` (reference: 2x2 and
 3x3 tile grids, stagger dt 10, runtime 240 s): `MPDEnsemble` agents over
 3-tile skeletons, with its flags and defaults, on the card unless
-`--device cpu`. `--frontier_width` other than 1 raises `ValueError`.
+`--device cpu`. `--frontier_width` reaches every CBS team's search.
 Exits 1 when a trial raised.
 """
 from __future__ import annotations
@@ -35,7 +35,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--runtime_limit", type=float, default=240.0)
     ap.add_argument("--stagger_dt", type=int, default=10)
     ap.add_argument("--frontier_width", type=int, default=1,
-                    help="not ported: only 1 (the reference's expansion order) runs")
+                    help="CBS: the greedy chains of this many top open nodes a round "
+                         "(a power of two; 1 = the reference's expansion order)")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 UNet inference for every tile model")
     ap.add_argument("--time_str", default=None,

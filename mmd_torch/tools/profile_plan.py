@@ -332,8 +332,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_plan: needs a CUDA card", file=sys.stderr)
         return 2
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()

@@ -117,8 +117,6 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_bench: no CUDA device; the numbers are a card's")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()

@@ -46,15 +46,9 @@ def main(argv=None):
         sys.exit(f"refusing to write into {args.out}: data_trained_models* directories hold "
                  "the repository's committed checkpoints")
 
-    import torch
-
     from mmd_torch.datasets.trajectories import TrajectoryDataset, model_id
     from mmd_torch.train.trainer import TrainConfig, train
 
-    if torch.device(args.device).type == "cuda":
-        # As every phase of the port's card runs: float32 stays float32.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     mid = model_id(args.env)
     ds = TrajectoryDataset.load_trajectories(args.data_dir, mid, device=args.device)
     print(f"dataset {mid}: {ds.n_trajs} trajectories on {args.device}")

@@ -17,8 +17,8 @@ it, with its first conflict.
   least-cost choice, the anytime near-miss; an ECBS child starved by its
   soft balls replans with its hard CT constraints kept; the per-child
   paths of an unbatchable team and of vertex and edge conflicts.
-- `mmd_torch.bench`: its planner mapping, and its refusal of the variants
-  not ported.
+- `mmd_torch.bench`: its planner mapping, the repair variants and the
+  guide-iteration probe it once refused.
 """
 import copy
 import dataclasses
@@ -281,7 +281,10 @@ def test_cbs_least_cost_strategy(monkeypatch):
 
 
 def run_until_expansions(monkeypatch, search, n, **kw):
-    """plan() with the clock pushed past any limit once n expansions ran."""
+    """plan() in the host-driven order (the greedy chain off, as JAX's
+    anytime test turns it off: each pop is one `expand`), with the clock
+    pushed past any limit once n expansions ran."""
+    monkeypatch.setattr(search, "_greedy_kbuf", lambda state: None)
     real = time.perf_counter
     offset = [0.0]
     monkeypatch.setattr(time, "perf_counter", lambda: real() + offset[0])
@@ -422,8 +425,29 @@ def test_bench_maps_planners_as_bench_py():
     ({"MMD_BENCH_GUIDE_STEPS": "3"}, "guide-iteration probe"),
 ])
 def test_bench_refuses_what_is_not_ported(env, names):
+    """The variants the port once refused now run: XCBS-R and XECBS-R
+    build CBS with MMD_BENCH_REPAIR (default 1) root repair rounds
+    (bench.py:85-96), and the guide-iteration probe sets every planner's
+    guide iterations (bench.py:75-78). Without a card the bench still
+    exits 2 and prints no result, saying it needs one."""
+    s = bench.settings(env)
+    ps, starts, goals = planners(2)
+    if names == "repair":
+        for repair_env, rounds in (({}, 1), ({"MMD_BENCH_REPAIR": "2"}, 2)):
+            s = bench.settings({**env, **repair_env, "MMD_BENCH_AGENTS": "2"})
+            team = bench.make_team_planner(s, ps, starts, goals)
+            assert type(team) is CBS and team.root_repair_rounds == rounds
+            assert (team.is_ecbs, team.is_xcbs) == (env["MMD_BENCH_PLANNER"] == "XECBS-R", True)
+        assert bench.make_team_planner(bench.settings({"MMD_BENCH_PLANNER": "XECBS"}), ps,
+                                       starts, goals).root_repair_rounds == 0
+    else:
+        assert s["guide_steps"] == 3
+        built, _, _ = bench.build_planners({**s, "agents": 2}, device="cpu")
+        assert all(p.cfg.n_guide_steps == 3 for p in built)
+        default, _, _ = bench.build_planners({**bench.settings({}), "agents": 2}, device="cpu")
+        assert default[0].cfg.n_guide_steps == 20  # the reference's (mmd_params.py:37)
     proc = subprocess.run([sys.executable, "-m", "mmd_torch.bench"], cwd=ROOT,
                           env={**os.environ, **env}, capture_output=True, text=True,
                           timeout=120)
-    assert proc.returncode != 0 and proc.stdout == ""
-    assert names in proc.stderr and "not port" in proc.stderr
+    assert proc.returncode == 2 and proc.stdout == ""
+    assert "needs a CUDA card" in proc.stderr

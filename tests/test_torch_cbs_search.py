@@ -3,11 +3,14 @@
 A dense 4-robot circle of EnvEmptyNoWait2D (radius 0.3, as
 tests/test_greedy_equivalence.py:58-62 makes its instance), on the real
 checkpoint at B=8 and full depth (25+1 DDPM steps, 14 guided steps x 20
-guide iterations). A whole search is held to its outcome, as JAX's own
-tests hold theirs: success with no conflict, by the search's count and by
-`count_conflicts` of its paths; every node it pops is a fewest-conflicts
-minimum of the open list at that moment; the plans and UNet forwards it
-counts are those its root and expansions make. JAX's search itself is not
+guide iterations), in JAX's default order: the root and a greedy chain
+from it, then per popped node a chain, else `expand`. A whole search is
+held to its outcome, as JAX's own tests hold theirs: success with no
+conflict, by the search's count and by `count_conflicts` of its paths;
+every node it expands, by `expand` or as a greedy step, is a
+fewest-conflicts minimum of the open list at that moment; its expansions
+are those steps and expansions; the plans and UNet forwards it counts are
+those its root and expansions make. JAX's search itself is not
 run: it compiles its fused programs, which takes minutes on the CPU (its
 pieces are held in tests/test_torch_local.py and tests/test_torch_cbs.py).
 """
@@ -48,14 +51,21 @@ def test_search_solves_the_dense_circle(monkeypatch, name, is_ecbs, is_xcbs):
         expand(state)
 
     monkeypatch.setattr(search, "expand", spy)
+    search.greedy_audit = audit = []
     paths, n_exp, status, n_conflicts = search.plan(runtime_limit=600)
-    print(f"{name}: {status}, {n_exp} expansions, timing {search.timing}")
+    print(f"{name}: {status}, {n_exp} expansions, timing {search.timing}, audit {audit}")
     assert status == TrialSuccessStatus.SUCCESS and n_conflicts == 0
     assert len(paths) == N_AGENTS and all(p.shape == (64, 4) for p in paths)
     assert count_conflicts(paths, search.margin) == 0
-    assert len(popped) == n_exp
+    steps = [e for e in audit if e[0] == "step"]
+    # A step whose children both starved under ECBS is expanded by `expand`
+    # and counted once, as its step.
+    assert len(popped) + len(steps) - audit.count(("starved",)) == n_exp
+    assert search.timing.get("greedy_steps", 0) == len(steps)
     for n, open_counts in popped:
         assert n > 0 and all(n <= m for m in open_counts), popped
+    for _, n, min_open in steps:
+        assert n > 0 and (min_open is None or n <= min_open), audit
     if name == "XECBS":
         assert n_exp >= 1
     t = search.timing

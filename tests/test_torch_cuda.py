@@ -259,6 +259,53 @@ def test_xecbs_search_launches_by_plan_kind_syncs_only_to_read_and_replays_exact
     assert torch.equal(replay.final.paths_all, final.paths_all)
 
 
+def test_greedy_chain_on_the_card_syncs_only_to_read(monkeypatch):
+    """One greedy chain on the card (XECBS, 3-agent dense circle, B=8, 2
+    guide iterations a step) from the split root: every host sync of the
+    call comes from `cbs.to_host`, one flag read a step and the records'
+    read; the collision guide launches once per guide call of each child
+    replan and the lookup once per child."""
+    _need_card()
+    import inspect
+
+    from mmd_torch.planners.multi_agent import cbs as cbs_module
+    from mmd_torch.planners.multi_agent.cbs import CBS
+
+    starts, goals = get_start_goal_pos_circle(3, radius=0.3)
+    planners = load_planners(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
+                             starts, goals, device="cuda", bf16=True)
+    for p in planners:
+        p.cfg = dataclasses.replace(p.cfg, n_samples=8, n_guide_steps=2)
+    load_kernels()
+    search = CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
+    search._reset_timing()
+    status, root = search._plan_root(lambda: False)
+    assert root.has_paths and root.n_conflicts > 0
+    search.greedy_audit = []
+    before = (collision_guide.launches, grid_lookup.launches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            accepted = search._expand_greedy(root)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    lines, first = inspect.getsourcelines(cbs_module.to_host)
+    stray = [f"{w.filename}:{w.lineno}" for w in _sync_warnings(caught)
+             if not (w.filename == cbs_module.__file__
+                     and first <= w.lineno < first + len(lines))]
+    assert not stray, stray
+    t = search.timing
+    assert accepted >= 1 and search.greedy_audit[0][0] == "step"
+    children = t["plans_local"]
+    assert children >= 2 and children % 2 == 0
+    assert t["device_greedy_calls"] <= children // 2 + 1
+    cfg = planners[0].cfg
+    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
+        (2 * cfg.n_guided_steps(3) * children, children)
+
+
 def test_bf16_forward_on_the_card_is_within_its_tolerance_of_f32():
     """The bfloat16 UNet on the card (cuDNN's bf16 convolutions) against
     the float32 forward at B=64: within BF16_TOL of the largest |eps|, the
@@ -414,8 +461,6 @@ def test_train_steps_on_the_card_match_the_cpu():
                                                   os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     parity, state, _ = cs.train_parity("cuda", _train_data("cpu"))
     assert max(parity["loss_rel"], parity["param_abs"], parity["ema_abs"]) <= cs.TRAIN_PARITY_TOL
     assert parity["bf16_loss_rel"] <= cs.BF16_PARITY_LOSS_TOL

@@ -22,8 +22,9 @@ What is held, and how closely:
   counted and written to error_<time_str>.txt while the sweep goes on;
   results go to build/results by default, and the committed results/
   tree and a sweep whose results.pkl JAX wrote are refused.
-- The refusals of what is not ported: `frontier_width`, `repair_period`,
-  `greedy_iters`, a mesh and `render_animation`.
+- The refusals of what is not ported, a mesh and `render_animation`; and
+  `frontier_width`, `repair_period` and `greedy_iters`, which reach the
+  CBS search of a trial and of a sweep, and not PP's.
 - The CLIs take the JAX scripts' flags with their defaults;
   `pair_sweeps` puts a cell's rates and each trial's status beside JAX's.
 - Whole 2-agent PP and XECBS sweeps on EnvEmptyNoWait2D's committed
@@ -476,21 +477,46 @@ def test_pair_sweeps_puts_each_trial_beside_jaxs(tmp_path, monkeypatch):
 @pytest.mark.parametrize("knob", [{"frontier_width": 2}, {"repair_period": 1},
                                   {"greedy_iters": 4}, {"mesh": object()},
                                   {"render_animation": True}], ids=lambda k: next(iter(k)))
-def test_unported_knobs_are_refused(knob, tmp_path):
+def test_unported_knobs_are_refused(knob, tmp_path, cpu_registry, monkeypatch):
+    """A mesh and render_animation are still refused. The speculative
+    search's knobs, which the port once refused, now reach the CBS search
+    of a trial and of a sweep (JAX trial.py:201-209), and not PP's."""
     kw = {k: v for k, v in knob.items() if k != "mesh"}
-    cfg = experiments.MultiAgentPlanningSingleTrialConfig(time_str="t", **kw)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item"):
-        run_multi_agent_trial(cfg, registry=object(), results_root=str(tmp_path),
-                              mesh=knob.get("mesh"))
-    if "mesh" not in knob:
+    if "mesh" in knob or "render_animation" in knob:
+        cfg = experiments.MultiAgentPlanningSingleTrialConfig(time_str="t", **kw)
         with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item"):
-            run_multi_agent_experiment(_sweep_cfg(**kw), str(tmp_path))
-    assert not os.listdir(tmp_path)
+            run_multi_agent_trial(cfg, registry=object(), results_root=str(tmp_path),
+                                  mesh=knob.get("mesh"))
+        if "mesh" not in knob:
+            with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item"):
+                run_multi_agent_experiment(_sweep_cfg(**kw), str(tmp_path))
+        assert not os.listdir(tmp_path)
+        return
+    from mmd_torch.experiments import trial as trial_module
+
+    (name, value), = kw.items()
+    teams = []
+    real = trial_module.make_team_planner
+    monkeypatch.setattr(trial_module, "make_team_planner",
+                        lambda *a, **k: teams.append(real(*a, **k)) or teams[-1])
+    cfg = _sweep_cfg(num_trials_per_combination=1, runtime_limit=60.0, **kw)
+    analyzed, n_failed = run_multi_agent_experiment(cfg, str(tmp_path), cpu_registry, SHORT)
+    assert n_failed == 0 and analyzed[2]["XECBS"]["num_trials"] == 1
+    cbs, pp = teams
+    assert type(cbs).__name__ == "CBS" and type(pp).__name__ == "PrioritizedPlanning"
+    assert {"frontier_width": cbs.frontier_width, "repair_period": cbs.repair_period,
+            "greedy_iters": cbs.GREEDY_ITERS}[name] == value
+    assert not hasattr(pp, name)
+    # One trial alone, unsaved, as inference_multi_agent runs it.
+    tc = cfg.get_single_trial_configs_from_experiment_config()[0]
+    r = run_multi_agent_trial(tc, cpu_registry, str(tmp_path), save=False, diffusion_cfg=SHORT)
+    assert r.success_status == TrialSuccessStatus.SUCCESS
+    assert getattr(teams[-1], "GREEDY_ITERS" if name == "greedy_iters" else name) == value
 
 
 @pytest.mark.parametrize("argv", [["--mesh_agents", "2"], ["--render_animation"]])
 def test_inference_cli_refuses_what_is_not_ported(argv, tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 4"):
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 3"):
         inference_multi_agent.main(argv + ["--results_root", str(tmp_path), "--device", "cpu",
                                            "--num_agents", "2"])
 
