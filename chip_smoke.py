@@ -10,13 +10,15 @@ this file. Phases, one short line each:
 2. build: both CUDA kernels (the grid-SDF lookup and the collision guide),
    one nvcc per source, all started together, into build/
 3. kernel: the grid-SDF kernel against its plain torch version on the
-   EnvConveyor2D and EnvEmptyNoWait2D grids (out-of-range points, points on
-   cell edges, ragged counts, a strided view, the finalize's (64, 379, 2)
-   interpolated waypoints, the training summary's (25, 379, 2), the task
-   sampler's 1024 and 2048 candidates, a generated context's (20, 379, 2)
-   and the linear data's (500, 379, 2)), which must agree exactly; both
-   timed with CUDA
-   events at the finalize's shape, the one the main path gives it
+   EnvConveyor2D and EnvEmptyNoWait2D grids
+   (out-of-range points, points on cell edges, ragged counts, a strided
+   view, the finalize's (64, 379, 2) interpolated waypoints, the training
+   summary's (25, 379, 2), the task sampler's 1024 and 2048 candidates, a
+   generated context's (20, 379, 2), the linear data's (500, 379, 2) and a
+   10-problem batched finalize's (640, 379, 2)), which must agree exactly;
+   at (64, 379, 2) and (640, 379, 2) the kernel's device time a launch (a
+   profiler trace), and the wrapper and the plain version timed with CUDA
+   events
 4. collision: the collision-guide kernel against its plain version (the
    guide's autograd code, on the card, over the plain torch lookup) on both
    maps and a scene whose two
@@ -45,7 +47,15 @@ this file. Phases, one short line each:
    plan replayed on the card with both kernels routed to their plain
    versions, which must choose the same indices and agree within
    REPLAY_TOL. It prints the team's wall seconds, each agent's seconds
-   (CUDA events between the agents) and the launches
+   (CUDA events between the agents) and the launches. Then the ten agents
+   as one batched fresh sampler call (`PrioritizedTeam.plan_problems`, the
+   CBS/XCBS root's): 280 collision-guide launches and one lookup for all
+   ten; then that call's chain with the UNet run 64 rows at a time
+   (`RowChunked`), each DDPM step within CPU_TOL of each agent's single
+   step fed the same x. The UNet runs at 64 rows there because cuDNN
+   chooses its convolution algorithm by batch size, so a row need not be
+   summed in one order at 640 rows and at 64; the unchunked chain's steps
+   against the single steps are printed beside it as a reading of that
 8. cbs: the XECBS search of the 10-robot circle, the main path of the
    repository's bench.py (bfloat16 UNet, DDPM, B=64, H=64), through
    `CBS.plan`, with ten planners sharing one model seeded as bench.py
@@ -55,9 +65,11 @@ this file. Phases, one short line each:
    search's one reading function (`cbs.to_host`), and inside the ECBS root
    there must be at most one read per agent. Then the measured search,
    which must succeed with no conflict (`count_conflicts` of its paths
-   too) and launch the collision guide exactly 280 times per fresh plan
-   and 80 per local replan and the lookup once per plan, by the search's
-   own count of its plans; then the same search replayed on the card (the
+   too) and launch the collision guide exactly 280 times per fresh
+   sampler call and 80 per local one and the lookup once per call, by the
+   search's own count of its calls (`timing["sampler_calls"]`), with one
+   local call for each chain step's two children; then the same search
+   replayed on the card (the
    generators restored) with both kernels routed to their plain versions,
    which must make the same expansions and choose the same indices, and
    agree within REPLAY_TOL. The search takes JAX's default path, the root
@@ -72,9 +84,10 @@ this file. Phases, one short line each:
    frontier's recovery and for ECBS's starved children: run under sync
    debug mode (every sync from `cbs.to_host`, at most one read per agent
    in the root), it must read its children through that expansion and
-   none through a chain, succeed with no conflict, launch 280 x fresh +
-   80 x local collision guides and one lookup a plan, and replay exactly
-   with both plain versions
+   none through a chain, make one local sampler call a children read (a
+   conflict's children, and again the ones the soft rows starved), succeed
+   with no conflict, launch 280 x fresh + 80 x local collision guides and
+   one lookup a sampler call, and replay exactly with both plain versions
 9. tiles: multi-tile planning (`MPDEnsemble`, float32, B=64, H=64, 25+1
    DDPM steps) on the 2x2 staggered instance EnvTestTwoByTwoRobotPlanarDiskRandom
    (seed 0, 4 agents, stagger dt = 10; its 2x2 grid's tiles EnvEmptyNoWait2D,
@@ -163,16 +176,17 @@ this file. Phases, one short line each:
    XECBS-R (`mmd_torch.bench`'s planners and team: the 10-robot circle,
    bf16, one root repair round): a warm-up under torch's sync debug mode
    (every sync from `cbs.to_host`), the search, which must succeed with no
-   conflict and launch exactly 280 x fresh + 80 x local collision guides
-   and one lookup a plan, and its replay with both kernels routed to
+   conflict, plan its 20 fresh plans (the team root and the repair round)
+   in 2 sampler calls, and launch exactly 280 x fresh + 80 x local
+   collision guides and one lookup a sampler call, and its replay with both kernels routed to
    their plain versions (generators restored), which must be exact;
    (b) one trial of JAX's dense grid (EnvConveyor2DRobotPlanarDiskRandom,
    DENSE_AGENTS agents, the vd checkpoint, float32, XECBS, frontier width
    2, DENSE_RUNTIME_LIMIT s; trial DENSE_TRIAL) through
    `run_multi_agent_trial`: it must succeed, audit at 0 contacts, run at
-   least one frontier round of two nodes, and launch exactly what its plan
-   counts say (280 / 80 guide calls a plan, one lookup a plan and one for
-   each of the team's two checks)
+   least one frontier round of two nodes, and launch exactly what its
+   sampler-call counts say (280 / 80 guide calls a call, one lookup a call
+   and one for each of the team's two checks)
 11. one JSON line of kernel numbers (launches: this slice's path, phase 15;
    launches by path: the four plans of phase 5, the team plan of
    phase 7, the two searches of phase 8, phase 9's two plans, search and PP team,
@@ -180,7 +194,8 @@ this file. Phases, one short line each:
    bound: the collision
    guide at phase 9's stacked (3, 64, 64, 4), with phase 4's (64, 64, 4)
    beside them; `launch_floor_us`: the device time of a 1-element `fill_`
-   from a profiler trace, the least a launch costs), then the contract line
+   from a profiler trace, the least a launch costs; the lookup's numbers at
+   both phase 3 shapes), then the contract line
    {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
@@ -221,6 +236,7 @@ COLLISION_TOL = 0.0
 REPLAY_TOL = 0.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FINALIZE_SHAPE = (64, 379)  # classification points: B=64 x (63 x 6 + 1)
+BATCHED_FINALIZE_SHAPE = (640, 379)  # a batched finalize of 10 problems' 64 each
 SUMMARY_SHAPE = (25, 379)   # the training summary's: 25 samples x (63 x 6 + 1)
 CONTEXT_SHAPE = (20, 379)   # a generated context's classification: 20 trajectories
 LINEAR_SHAPE = (500, 379)   # the linear data's classification: 500 contexts
@@ -372,6 +388,37 @@ def kernel_points(n: int, grid, seed: int):
     return pts
 
 
+def time_lookup(scene, tables, pts) -> dict:
+    """The lookup kernel at pts's shape: its device time a launch (a
+    profiler trace), the wrapper's and the plain version's ms (CUDA
+    events), and the least bytes: each point read once (8 B), each output
+    written once (24 B a point: two values and two gradients) and each
+    distinct cell's 24 B of the function's data (two values and two
+    gradients; the record's 8 B of padding are not the function's) read
+    once."""
+    import torch
+
+    from mmd_torch.ops import sdf_kernel
+    from mmd_torch.tools.profile_plan import _traced
+
+    box = (scene.grid.lower, scene.grid.upper)
+
+    def run():
+        return sdf_kernel.grid_lookup_cuda(pts, tables, *box)
+
+    run()
+    _, events = _traced(lambda: [run() for _ in range(200)], host=False)
+    hits = [e.time_range.elapsed_us() for e in events if "grid_sdf_lookup_kernel" in e.name]
+    out = {"device_us": sum(hits) / len(hits), "ms": cuda_ms(run),
+           "plain_ms": cuda_ms(lambda: sdf_kernel.grid_lookup_plain(pts, tables, *box))}
+    i, j = sdf_kernel.cell_index(pts, scene.grid.shape, *box)
+    out["points"] = pts.numel() // 2
+    out["cells"] = int(torch.unique(i * scene.grid.shape[1] + j).numel())
+    out["bytes"] = out["points"] * (8 + 24) + 24 * out["cells"]
+    out["bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
 def cuda_ms(fn, n_iter: int = 200, n_warm: int = 20) -> float:
     import torch
 
@@ -446,12 +493,12 @@ def main() -> int:
         for n in FILTER_POINTS:
             cases[f"filter {n}"] = torch.from_numpy(kernel_points(n, scene.grid, n + 1)).to(dev)
         for case, shape in (("summary", SUMMARY_SHAPE), ("context", CONTEXT_SHAPE),
-                            ("linear", LINEAR_SHAPE)):
+                            ("linear", LINEAR_SHAPE), ("batched", BATCHED_FINALIZE_SHAPE)):
             cases[case] = torch.from_numpy(kernel_points(
                 shape[0] * shape[1], scene.grid, shape[0])).to(dev).reshape(*shape, 2)
         for case, pts in cases.items():
-            got = grid_lookup_cuda(pts, tables, scene.grid.lower, scene.grid.upper)
             want = grid_lookup_plain(pts, tables, scene.grid.lower, scene.grid.upper)
+            got = grid_lookup_cuda(pts, tables, scene.grid.lower, scene.grid.upper)
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 err = float((g - w).abs().max())
@@ -462,25 +509,25 @@ def main() -> int:
         print(f"kernel: {env_name} lookup equal to plain at {n_final}/65536/4032/999 "
               f"points, the filter's {FILTER_POINTS} candidates, a strided (64, 63, 2) "
               f"view, the summary's {SUMMARY_SHAPE + (2,)}, a context's "
-              f"{CONTEXT_SHAPE + (2,)} and the linear data's {LINEAR_SHAPE + (2,)}")
+              f"{CONTEXT_SHAPE + (2,)}, the linear data's {LINEAR_SHAPE + (2,)} and a "
+              f"batched finalize's {BATCHED_FINALIZE_SHAPE + (2,)}")
 
     scene = make_env("EnvConveyor2D", dev).scene
     tables = [(scene.grid.values, scene.grid.grads),
               (scene.extra_grid.values, scene.extra_grid.grads)]
-    pts = torch.from_numpy(kernel_points(FINALIZE_SHAPE[0] * FINALIZE_SHAPE[1],
-                                         scene.grid, 7)).to(dev).reshape(*FINALIZE_SHAPE, 2)
     box = (scene.grid.lower, scene.grid.upper)
-    lookup_ms = cuda_ms(lambda: grid_lookup_cuda(pts, tables, *box))
-    lookup_plain_ms = cuda_ms(lambda: grid_lookup_plain(pts, tables, *box))
-    # Least bytes: each point read once, each distinct cell read once from
-    # both grids (value 4 B + gradient 8 B), both outputs written once.
-    i, j = sdf_kernel.cell_index(pts, scene.grid.shape, *box)
-    n_pts = pts.numel() // 2
-    n_cells = int(torch.unique(i * scene.grid.shape[1] + j).numel())
-    lookup_bytes = n_pts * 8 + len(tables) * 12 * (n_cells + n_pts)
-    lookup_bound_ms = lookup_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"kernel: lookup of {n_pts} pts x 2 grids: kernel {lookup_ms:.5f} ms, plain "
-          f"{lookup_plain_ms:.5f} ms, bound {lookup_bound_ms:.6f} ms ({lookup_bytes} B)")
+    lookup_at = {}
+    for shape in (FINALIZE_SHAPE, BATCHED_FINALIZE_SHAPE):
+        lookup_at[shape] = time_lookup(scene, tables, torch.from_numpy(kernel_points(
+            shape[0] * shape[1], scene.grid, 7)).to(dev).reshape(*shape, 2))
+        t = lookup_at[shape]
+        print(f"kernel: lookup at {shape + (2,)} ({t['points']} pts x 2 grids, {t['cells']} "
+              f"distinct cells): device {t['device_us']:.4f} us a launch; wrapper "
+              f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms; bound {t['bound_ms']:.6f} ms "
+              f"({t['bytes']} B)")
+    main_lookup = lookup_at[FINALIZE_SHAPE]
+    lookup_ms, lookup_plain_ms = main_lookup["ms"], main_lookup["plain_ms"]
+    lookup_bound_ms = main_lookup["bound_ms"]
 
     phase("collision")
     # The plain version's lookup runs in plain torch too, so that the kernel
@@ -655,6 +702,7 @@ def main() -> int:
           f"max |trajs_final kernels - plain| {diff:.3e} (tolerance {REPLAY_TOL})")
     if kept.ix_best != pp.final.ix_best or not diff <= REPLAY_TOL:
         raise RuntimeError(f"the kernels' and the plain versions' team plans differ by {diff}")
+    batched = batched_against_looped(team, team_noise)
 
     phase("cbs")
     cbs = run_cbs_phase(dev, cfg, plain_lookup)
@@ -701,6 +749,8 @@ def main() -> int:
         "max_abs_err": max(lookup_err, trained["lookup_err"]), "ms": lookup_ms,
         "plain_ms": lookup_plain_ms,
         "bound_ms": lookup_bound_ms, "bound_by": "bytes", "library_ms": None,
+        "shapes": {str(list(shape)): {k: v for k, v in t.items()}
+                   for shape, t in lookup_at.items()},
     }, {
         "name": "collision_guide", "route": "cuda",
         "source": "mmd_torch/csrc/collision_guide.cu", "replaces": cg.REPLACES,
@@ -713,7 +763,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "plan_s": plan_s,
                       "team": {"agents": TEAM_AGENTS, "plan_s": timing["plan_s"],
                                "agent_s": timing.get("agent_s"), "status": str(status),
-                               "conflicts": n_conflicts},
+                               "conflicts": n_conflicts, "batched": batched},
                       "xecbs": cbs["summary"], "tiles": tiles["summary"],
                       "train": trained["summary"], "eval": evaluated["summary"],
                       "datagen": generated["summary"], "experiments": experiments["summary"],
@@ -805,16 +855,18 @@ def run_cbs_phase(dev, cfg, plain_lookup):
         return root_reads
 
     def check_search(name, team, out, launches):
-        """The search's result and its launches against its own plan counts."""
+        """The search's result and its launches against its own counts of
+        its sampler calls: 280 collision guides a fresh call and 80 a local
+        one, whatever its number of problems, and one lookup a call."""
         paths, n_exp, status, n_conflicts = out
-        fresh, local = team.timing["plans_fresh"], team.timing["plans_local"]
+        fresh, local = calls_of(team.timing)
         if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
                 or count_conflicts(paths, team.margin) != 0):
             raise RuntimeError(f"{name} search: status {status}, {n_conflicts} conflicts")
         want = (per_fresh * fresh + per_local * local, fresh + local)
         if (launches["collision_guide"], launches["grid_sdf_lookup"]) != want:
             raise RuntimeError(f"{name} search launched {launches}, expected {want} "
-                               f"({fresh} fresh plans, {local} local replans)")
+                               f"({fresh} fresh sampler calls, {local} local ones)")
         if len(paths) != TEAM_AGENTS or not all(
                 p.shape == (cfg.horizon, cfg.state_dim) and np.isfinite(p).all() for p in paths):
             raise RuntimeError(f"{name} paths not finite of the expected shape")
@@ -866,12 +918,19 @@ def run_cbs_phase(dev, cfg, plain_lookup):
     _, n_exp, status, n_conflicts = out
     timing = dict(xecbs.timing)
     fresh, local = timing["plans_fresh"], timing["plans_local"]
+    calls_fresh, calls_local = calls_of(timing)
     waits = waits_of(timing)
     print(f"cbs: {TEAM_AGENTS}-robot XECBS (bf16, DDPM) in {timing['plan_s']:.3f} s, {status}, "
           f"{n_conflicts} conflicts, {n_exp} expansions; host waits {timing['device_calls']} "
           f"({timing['device_s']:.3f} s) by phase {waits}; plans fresh {fresh}, local {local}; "
+          f"sampler calls fresh {calls_fresh}, local {calls_local}; "
           f"UNet forwards {timing['unet_forwards']}; launches collision "
           f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']}")
+    # Every local call of the root + chain search is a chain step's two
+    # children: 80 collision guides for both, not 160.
+    if local != 2 * calls_local or calls_local < 1:
+        raise RuntimeError(f"XECBS: {local} local plans in {calls_local} sampler calls, "
+                           f"not one call a chain step")
     greedy = audit_summary(xecbs.greedy_audit, timing)
     print(f"cbs: greedy chain: {greedy['reads']} flag reads, {greedy['steps']} accepted "
           f"steps; audit {xecbs.greedy_audit}")
@@ -895,11 +954,18 @@ def run_cbs_phase(dev, cfg, plain_lookup):
     _, host_exp, host_status, host_conflicts = host_out
     ht = dict(host.timing)
     expand_reads = ht.get("device_children_calls", 0) + ht.get("device_expand_calls", 0)
+    host_calls = calls_of(ht)
+    # One sampler call a conflict's children (and one more for the ones an
+    # ECBS expansion's soft rows starved), each read once.
+    if host_calls[1] != ht.get("device_children_calls", 0):
+        raise RuntimeError(f"host-driven XECBS: {host_calls[1]} local sampler calls for "
+                           f"{ht.get('device_children_calls', 0)} children reads")
     print(f"cbs: host-driven {TEAM_AGENTS}-robot XECBS (one-node expand, under sync debug "
           f"mode) in {ht['plan_s']:.3f} s, {host_status}, {host_conflicts} conflicts, "
           f"{host_exp} expansions; host syncs: {len(host_ours)} from cbs.to_host, "
           f"{len(host_others)} elsewhere; host waits {ht['device_calls']} by phase "
           f"{waits_of(ht)}; plans fresh {ht['plans_fresh']}, local {ht['plans_local']}; "
+          f"sampler calls fresh {host_calls[0]}, local {host_calls[1]}; "
           f"launches collision {host_launches['collision_guide']}, lookup "
           f"{host_launches['grid_sdf_lookup']}")
     if expand_reads == 0 or ht.get("device_greedy_calls", 0) or host_exp == 0:
@@ -912,14 +978,83 @@ def run_cbs_phase(dev, cfg, plain_lookup):
         "agents": TEAM_AGENTS, "plan_s": timing["plan_s"], "expansions": n_exp,
         "status": str(status), "conflicts": n_conflicts, "device_s": timing["device_s"],
         "device_calls": timing["device_calls"], "waits_s": waits, "plans_fresh": fresh,
-        "plans_local": local, "unet_forwards": timing["unet_forwards"],
+        "plans_local": local, "sampler_calls": [calls_fresh, calls_local],
+        "unet_forwards": timing["unet_forwards"],
         "bf16_err": bf16_err, "warmup_syncs": len(ours), "root_reads": root_reads,
         "greedy": greedy, "host_driven": {
             "plan_s_sync_debug": ht["plan_s"], "expansions": host_exp,
             "status": str(host_status), "conflicts": host_conflicts,
             "expand_reads": expand_reads, "root_reads": host_root_reads,
             "syncs": len(host_ours), "plans_fresh": ht["plans_fresh"],
-            "plans_local": ht["plans_local"]}}}
+            "plans_local": ht["plans_local"], "sampler_calls": list(host_calls)}}}
+
+
+def batched_against_looped(team, noise_l) -> dict:
+    """The team's agents as one fresh sampler call (`plan_problems`, the
+    CBS/XCBS root's): it must launch the collision guide once a guide call
+    and the lookup once for all agents. Then that call's chain with the
+    UNet run B rows at a time (`RowChunked`): every DDPM step against each
+    agent's single step fed the same x, on the card, within CPU_TOL. cuDNN
+    chooses its convolution algorithm by batch size, so a row need not be
+    summed in one order at A * B rows and at B; the chain at A * B rows,
+    as the planners run it, is held the same way and printed as a reading
+    of that difference."""
+    import torch
+
+    from mmd_torch.costs.guide import GuideData
+    from mmd_torch.models import diffusion
+    from mmd_torch.models.diffusion import HardConds, SamplerNoise
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+    from mmd_torch.tools.row_chunked import RowChunked
+
+    p0, A = team.p0, len(noise_l)
+    cfg = p0.cfg
+    before = (collision_guide.launches, grid_lookup.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = team.plan_problems(noise_l)
+    free = res.free_mask.any(dim=-1).cpu()
+    batch_s = time.perf_counter() - t0
+    grew = (collision_guide.launches - before[0], grid_lookup.launches - before[1])
+    want = (cfg.n_guided_steps() * cfg.n_guide_steps, 1)
+    print(f"team: the {A} agents as one batched fresh call in {batch_s:.3f} s, every agent "
+          f"free {bool(free.all())}, launches collision +{grew[0]}, lookup +{grew[1]} "
+          f"(expected {want})")
+    if grew != want or res.trajs_final.shape[0] != A:
+        raise RuntimeError(f"the batched call launched {grew}, expected {want}")
+    hard = HardConds(mask=team.hard_team.mask, values=team.hard_team.values[:, None])
+    gd = GuideData(scene=p0.scene, normalizer=p0.dataset.normalizer,
+                   constraints=team.base_cset)
+    noise = SamplerNoise.stack(noise_l)
+
+    def step_errs(model):
+        _, chain = diffusion.guided_p_sample_loop(model, p0.schedule, hard, cfg, noise, gd=gd,
+                                                  guide_cfg=p0.guide_cfg)
+        return [max(float((diffusion._ddpm_step(
+            p0.model, p0.schedule, chain[k, a], i, noise.steps[k, a],
+            HardConds(mask=hard.mask, values=team.hard_team.values[a]), gd, cfg,
+            p0.guide_cfg, i < cfg.t_start_guide) - chain[k + 1, a]).abs().max())
+            for a in range(A)) for k, i in enumerate(cfg.step_indices())]
+
+    errs = step_errs(RowChunked(p0.model, cfg.n_samples))
+    rows_errs = step_errs(p0.model)
+    print(f"team: the batched call's {len(errs)} DDPM steps, UNet at {cfg.n_samples} rows, "
+          f"against each agent's single step fed the same x: max |diff| {max(errs):.3e} "
+          f"(tolerance {CPU_TOL}); by step {[f'{e:.2e}' for e in errs]}")
+    print(f"team: the same at {A * cfg.n_samples} UNet rows (cuDNN's algorithm by batch "
+          f"size, a reading): max |diff| {max(rows_errs):.3e}; by step "
+          f"{[f'{e:.2e}' for e in rows_errs]}")
+    if not max(errs) <= CPU_TOL:
+        raise RuntimeError(f"a batched step differs from the looped one: {errs}")
+    return {"agents": A, "batch_s": batch_s, "launches": list(grew), "step_errs": errs,
+            "step_errs_unchunked": rows_errs}
+
+
+def calls_of(timing) -> tuple:
+    """A search's sampler calls, (fresh, local), from its `timing`."""
+    local = timing["sampler_calls_local"]
+    return timing["sampler_calls"] - local, local
 
 
 def audit_summary(audit, timing) -> dict:
@@ -1685,6 +1820,7 @@ def run_experiments_phase(dev, n_trials: int = EXPERIMENT_TRIALS):
     grid_tiles = len(ids) * len(ids[0])
     want = expected_launches(trials["XECBS"] + trials["PP"], grid_tiles)
     fresh, local = want.pop("plans_fresh"), want.pop("plans_local")
+    want.pop("sampler_calls")
     print(f"experiments: plans fresh {fresh}, local {local}; launches collision "
           f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']} (expected "
           f"{want['collision_guide']} and {want['grid_sdf_lookup']}: 3 a plan and 2 x "
@@ -1794,21 +1930,27 @@ def run_speculative_phase(dev, cfg, plain_lookup):
            "collision_guide": collision_guide.launches}  # xecbs_r path ends
     t = dict(team.timing)
     fresh, local = t["plans_fresh"], t["plans_local"]
+    calls_fresh, calls_local = calls_of(t)
     waits = {k[len("device_"):-2]: v for k, v in t.items()
              if k.startswith("device_") and k.endswith("_s") and k != "device_s"}
     print(f"speculative: {TEAM_AGENTS}-robot XECBS-R (bf16, {team.root_repair_rounds} repair "
           f"round) in {t['plan_s']:.3f} s, {status}, {n_conflicts} conflicts, {n_exp} "
           f"expansions; host waits {t['device_calls']} by phase {waits}; plans fresh {fresh}, "
-          f"local {local}; launches collision {got['collision_guide']}, lookup "
-          f"{got['grid_sdf_lookup']}; audit {team.greedy_audit}")
+          f"local {local}; sampler calls fresh {calls_fresh}, local {calls_local}; launches "
+          f"collision {got['collision_guide']}, lookup {got['grid_sdf_lookup']}; audit "
+          f"{team.greedy_audit}")
+    # The fresh team root and the repair round: two calls of 10 agents.
+    if (calls_fresh, fresh) != (2, 2 * TEAM_AGENTS):
+        raise RuntimeError(f"XECBS-R made {fresh} fresh plans in {calls_fresh} sampler "
+                           f"calls, not {2 * TEAM_AGENTS} in 2")
     if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
             or count_conflicts(paths, team.margin) != 0):
         raise RuntimeError(f"XECBS-R search: status {status}, {n_conflicts} conflicts")
     if t.get("device_repair_calls") != 3:
         raise RuntimeError(f"XECBS-R read its repair {t.get('device_repair_calls')} times, "
                            f"not 3 (reselect, round, reselect)")
-    want = {"collision_guide": per_fresh * fresh + per_local * local,
-            "grid_sdf_lookup": fresh + local}
+    want = {"collision_guide": per_fresh * calls_fresh + per_local * calls_local,
+            "grid_sdf_lookup": calls_fresh + calls_local}
     if got != want:
         raise RuntimeError(f"XECBS-R launched {got}, expected {want}")
     kept = team.final
@@ -1829,6 +1971,7 @@ def run_speculative_phase(dev, cfg, plain_lookup):
     launches["xecbs_r"] = got
     summary["xecbs_r"] = {"plan_s": t["plan_s"], "status": str(status), "expansions": n_exp,
                           "plans_fresh": fresh, "plans_local": local,
+                          "sampler_calls": [calls_fresh, calls_local],
                           "device_calls": t["device_calls"], "waits_s": waits,
                           "warmup_syncs": len(ours), "greedy": audit_summary(
                               team.greedy_audit, t)}
@@ -1854,12 +1997,14 @@ def run_speculative_phase(dev, cfg, plain_lookup):
            "collision_guide": collision_guide.launches}  # dense path ends
     want = expected_launches([r], grid_tiles=1)
     fresh, local = want.pop("plans_fresh"), want.pop("plans_local")
+    calls = want.pop("sampler_calls")
     tt = r.team_timing
     print(f"speculative: dense trial {DENSE_TRIAL} of {DENSE_INSTANCE}, {DENSE_AGENTS} agents "
           f"(vd, f32, XECBS, frontier width {DENSE_WIDTH}, {DENSE_RUNTIME_LIMIT:.0f} s): "
           f"{r.success_status}, {r.num_collisions_in_solution} collisions, "
           f"{r.num_ct_expansions} expansions in {r.planning_time:.3f} s; frontier rounds "
-          f"of {rounds} nodes; plans fresh {fresh}, local {local}; host waits "
+          f"of {rounds} nodes; plans fresh {fresh}, local {local} in {calls} sampler calls "
+          f"({tt['sampler_calls_local']} local); host waits "
           f"{tt['device_calls']}; launches collision {got['collision_guide']}, lookup "
           f"{got['grid_sdf_lookup']} (expected {want})")
     if r.success_status != TrialSuccessStatus.SUCCESS or r.num_collisions_in_solution != 0:
@@ -1876,6 +2021,8 @@ def run_speculative_phase(dev, cfg, plain_lookup):
                         "planning_time": r.planning_time, "status": str(r.success_status),
                         "expansions": r.num_ct_expansions, "frontier_rounds": rounds,
                         "plans_fresh": fresh, "plans_local": local,
+                        "sampler_calls": [calls - tt["sampler_calls_local"],
+                                          tt["sampler_calls_local"]],
                         "adherence": r.data_adherence}
     summary["phase_s"] = time.perf_counter() - t_phase
     print(f"speculative: phase {summary['phase_s']:.2f} s")

@@ -121,6 +121,8 @@ def main() -> int:
            if k.startswith("device_") and k.endswith("_s") and k != "device_s"},
         "unet_evals": int(timing["unet_forwards"]),
         "plans_fresh": int(timing["plans_fresh"]), "plans_local": int(timing["plans_local"]),
+        "sampler_calls": int(timing["sampler_calls"]),
+        "sampler_calls_local": int(timing["sampler_calls_local"]),
         "bf16": s["bf16"],
         **({"sampler": s["sampler"]} if s["sampler"] != "ddpm" else {}),
         **({"n_guide_steps": s["guide_steps"]} if s["guide_steps"] > 0 else {}),

@@ -7,7 +7,8 @@ relu(radius - ||q_h - q_c||) while start <= h < end. The reference's
 constant offsets vanish under the gradient, which is all guidance uses.
 A multi-tile plan stacks one set per tile, (T, K, P, ...), and one
 `SoftPathConstraints` per tile, (T, R, H, ...); tile m's act on tile m's
-rows of a (T, B, H, D) batch.
+rows of a (T, B, H, D) batch. N problems of a batched plan stack theirs
+the same way (`pack_constraint_sets`, `stack_constraint_sets`).
 """
 from __future__ import annotations
 
@@ -88,16 +89,33 @@ def pack_constraint_set(
                                 soft_weight, q_dim), device)
 
 
-def pack_constraint_sets(per_tile: Sequence[Sequence], max_constraints: int,
-                         max_points: int, q_dim: int = 2, device="cuda") -> ConstraintSet:
-    """One padded set per tile, packed on the host and moved as one
-    (T, K, P, ...) stack, with the default hard and soft weights; an empty
-    list gives the tile an empty set."""
+def pack_constraint_sets(per_tile: Sequence[Sequence], max_constraints: Optional[int] = None,
+                         max_points: Optional[int] = None, q_dim: int = 2,
+                         device="cuda") -> ConstraintSet:
+    """One padded set per tile (or per problem of a batched plan), packed
+    on the host and moved as one (T, K, P, ...) stack, with the default hard
+    and soft weights; an empty list gives the tile an empty set. K and P
+    default to the largest of the lists, so that C children's sets share
+    one (K, P) and every row past a child's own is inactive (weight 0,
+    point_mask 0, active 0): JAX's children packed to common (K, P) buckets
+    (mmd_tpu/planners/multi_agent/fused.py:119-120)."""
+    if max_constraints is None:
+        max_constraints = max(1, max(len(c) for c in per_tile))
+    if max_points is None:
+        max_points = max([1] + [len(c.q_l) for cons in per_tile for c in cons])
     arrays = [_pack_arrays(c, max_constraints, max_points,
                            default_params.weight_grad_cost_constraints,
                            default_params.weight_grad_cost_soft_constraints, q_dim)
               for c in per_tile]
     return _as_set({k: np.stack([a[k] for a in arrays]) for k in arrays[0]}, device)
+
+
+def stack_constraint_sets(sets: Sequence[ConstraintSet]) -> ConstraintSet:
+    """Device sets of one (K, P) as N problems' (N, K, P, ...) stack, set n
+    problem n's; `n_active` counts them all."""
+    return ConstraintSet(n_active=sum(c.n_active for c in sets), **{
+        f.name: torch.stack([getattr(c, f.name) for c in sets])
+        for f in dataclasses.fields(ConstraintSet) if f.name != "n_active"})
 
 
 def _pack_arrays(constraints: Sequence, max_constraints: int, max_points: int,

@@ -25,6 +25,14 @@ guided step over tiles does (mmd_tpu/models/ensemble.py:119-131): x is
 per-tile normalizer limits of shape (T, 1, 1, D), constraint sets
 (T, K, P, ...), soft paths (T, R, H, ...)); each term is batched over
 (T, B), and tile m's rows see only tile m's data.
+
+N problems on one scene (a team root, a repair round, a conflict's
+children: JAX's vmapped programs) take the same shapes with a single
+`SceneData`: x (N, B, H, D), constraint sets (N, K, P, ...), soft paths
+(N, R, H, ...), the normalizer shared or (N, 1, 1, D). The collision term
+then takes u as (N * B, H, 4) rows of the one scene, one kernel launch for
+all N problems. A set's `n_active` counts all N problems' constraints, and
+a problem whose rows are all inactive adds exactly zero.
 """
 from __future__ import annotations
 
@@ -151,8 +159,8 @@ def _constraint_gradient(u: torch.Tensor, cset: ConstraintSet, cfg: GuideConfig)
 
 def guide_gradient(x_norm: torch.Tensor, gd: GuideData, cfg: GuideConfig) -> torch.Tensor:
     """One guide evaluation. x_norm (B, H, D), or (T, B, H, D) with a tile
-    stack's `gd` -> the step to add to it (x <- x + guide(x),
-    sample_functions.py:100-107)."""
+    stack's `gd`, or N problems' (N, B, H, D) -> the step to add to it
+    (x <- x + guide(x), sample_functions.py:100-107)."""
     with torch.enable_grad():
         u = gd.normalizer.unnormalize(x_norm.detach())
         # Both collision terms, weighted and clipped: one kernel launch on

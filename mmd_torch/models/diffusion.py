@@ -24,6 +24,16 @@ fresh loop, the q-sample noise of a warm-started one) and one normal draw
 per step (none for DDIM, whose eta is 0); without it, draws come from the
 caller's `torch.Generator`.
 
+A DDPM loop runs N problems of one model and one scene at once, as JAX's
+vmapped team and child programs run them (mmd_tpu/parallel/team.py:45,
+336; mmd_tpu/planners/multi_agent/fused.py:99-196): x is then (N, B, H,
+D), the UNet sees (N * B, H, D), the hard conditions' values are
+(N, 1, H, D) under one mask, the `SamplerNoise` is N problems' draws
+stacked (`SamplerNoise.stack`) and the `GuideData` leads with N
+(`mmd_torch/costs/guide.py`). Problem n's rows see only problem n's
+conditions, draws and constraints, so its result does not depend on the
+others. DDIM keeps its single-problem loop.
+
 `diffusion_loss` is the training loss (diffusion_model_base.py:435-456),
 its t and noise arguments, drawn by `draw_loss_noise`.
 """
@@ -45,7 +55,7 @@ class HardConds:
     """x <- x * (1 - mask) + values * mask for conditioned waypoints."""
 
     mask: torch.Tensor    # (H, 1) in {0., 1.}
-    values: torch.Tensor  # (H, D) or (B, H, D)
+    values: torch.Tensor  # (H, D) or (B, H, D); N problems' (N, 1, H, D)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return x * (1.0 - self.mask) + self.values * self.mask
@@ -72,7 +82,14 @@ class SamplerNoise:
     x_T: torch.Tensor   # (B, H, D) x_T, or a warm start's q-sample noise
     steps: torch.Tensor  # (n_steps + n_no_noise, B, H, D), one per step
     # A multi-tile loop's draws have a tile axis after the step's:
-    # x_T (T, B, H, D), steps (n, T, B, H, D).
+    # x_T (T, B, H, D), steps (n, T, B, H, D); so do N problems' (`stack`).
+
+    @staticmethod
+    def stack(noise_l) -> "SamplerNoise":
+        """N loops' draws as one batched loop's: x_T (N, B, H, D), steps
+        (n, N, B, H, D)."""
+        return SamplerNoise(x_T=torch.stack([z.x_T for z in noise_l]),
+                            steps=torch.stack([z.steps for z in noise_l], dim=1))
 
     @staticmethod
     def draw(cfg: DiffusionConfig, generator: torch.Generator, device,
@@ -127,10 +144,12 @@ def _ddpm_step(model: nn.Module, schedule: DiffusionSchedule, x: torch.Tensor,
 
 def _denoised_mean(model: nn.Module, schedule: DiffusionSchedule, x: torch.Tensor,
                    i: int) -> torch.Tensor:
-    """A step's first half: the posterior mean from the model's epsilon."""
-    tb = torch.full((x.shape[0],), max(i, 0), dtype=torch.int64, device=x.device)
-    x0 = torch.clamp(predict_start_from_noise(schedule, x, tb, model(x, tb)), -1.0, 1.0)
-    return q_posterior_mean(schedule, x0, x, tb)
+    """A step's first half: the posterior mean from the model's epsilon. N
+    problems' x (N, B, H, D) runs as one (N * B, H, D) batch."""
+    xf = x.reshape(-1, *x.shape[-2:])
+    tb = torch.full((xf.shape[0],), max(i, 0), dtype=torch.int64, device=x.device)
+    x0 = torch.clamp(predict_start_from_noise(schedule, xf, tb, model(xf, tb)), -1.0, 1.0)
+    return q_posterior_mean(schedule, x0, xf, tb).reshape(x.shape)
 
 
 def _guide_and_noise(schedule: DiffusionSchedule, x: torch.Tensor, i: int,
@@ -165,9 +184,12 @@ def guided_p_sample_loop(
     """The reverse process over n_diffusion_steps noisy steps (all of them
     by default) and the noise-free ones, from noise.x_T or, if given, from
     `warm_start` (diffusion.py:129-158). Returns (x_final, chain (S+1, B,
-    H, D)). A fresh full loop of a DDIM config runs `ddim_sample_loop`
-    instead (diffusion.py:139-147)."""
+    H, D)); for N problems (module docstring) x_final (N, B, H, D) and the
+    chain (S+1, N, B, H, D). A fresh full loop of a DDIM config runs
+    `ddim_sample_loop` instead (diffusion.py:139-147)."""
     if warm_start is None and cfg.is_ddim(n_diffusion_steps):
+        if noise.x_T.dim() > 3:
+            raise ValueError("DDIM samples one problem a loop")
         return ddim_sample_loop(model, schedule, hard, cfg, noise, gd=gd, guide_cfg=guide_cfg)
     steps = cfg.step_indices(n_diffusion_steps)
     if noise.steps.shape[0] != len(steps):
@@ -250,10 +272,12 @@ def run_local_inference(model: nn.Module, schedule: DiffusionSchedule, hard: Har
     t = n_noising_steps with noise.x_T, then denoise n_denoising_steps (and
     the noise-free steps) under the current constraints; returns the
     normalized chain (n_denoising_steps + n_no_noise + 1, B, H, D)
-    (diffusion.py:202-219)."""
-    t = torch.full((seed_trajs.shape[0],), n_noising_steps, dtype=torch.int64,
+    (diffusion.py:202-219), or N problems' (..., N, B, H, D) from seeds
+    (N, B, H, D)."""
+    flat = seed_trajs.reshape(-1, *seed_trajs.shape[-2:])
+    t = torch.full((flat.shape[0],), n_noising_steps, dtype=torch.int64,
                    device=seed_trajs.device)
-    warm = q_sample(schedule, seed_trajs, t, noise.x_T)
+    warm = q_sample(schedule, flat, t, noise.x_T.reshape(flat.shape)).reshape(seed_trajs.shape)
     _, chain = guided_p_sample_loop(model, schedule, hard, cfg, noise, gd=gd,
                                     guide_cfg=guide_cfg,
                                     n_diffusion_steps=n_denoising_steps, warm_start=warm)

@@ -16,7 +16,8 @@ between the two by device, are `collision_guide_plain` and
 
 The kernel reads a scene through its `GuideTable`, built once per scene
 (`SceneData.guide_table`): both SDF grids packed into one record of eight
-float32 per cell, and the box and wall constants as host floats. A
+float32 per cell (the grid-SDF lookup's own `packed_cells`, the same
+tensor), and the box and wall constants as host floats. A
 multi-tile plan's T scenes are one stacked table (`GuideTable.stack`, built
 once per `SceneStack`): u is then (T, B, H, 4), tile m's rows read scene m,
 and one launch covers all T tiles. Stacked scenes must share the box and
@@ -31,12 +32,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from mmd_torch.ops.build import CSRC_DIR, build_shared_libraries
-from mmd_torch.ops.sdf_kernel import box_span
+from mmd_torch.ops.sdf_kernel import RECORD, box_span, packed_cells  # noqa: F401 (RECORD)
 
 SOURCE = CSRC_DIR / "collision_guide.cu"
 # The TPU kernel whose work on the guide's path this one takes over.
 REPLACES = "mmd_tpu/ops/sdf_kernel.py:50"
-RECORD = 8  # float32 per cell: v0, g0x, g0y, v1, g1x, g1y, 0, 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -55,14 +55,14 @@ class GuideTable:
     @staticmethod
     def build(grid, extra_grid, wall_lo: Sequence[float],
               wall_hi: Sequence[float]) -> "GuideTable":
-        """Pack two `GridSDF`s of one shape and box, on their device."""
+        """Pack two `GridSDF`s of one shape and box, on their device: the
+        lookup's own packed record (`packed_cells`), one tensor for both
+        kernels."""
         if (grid.shape != extra_grid.shape or grid.lower != extra_grid.lower
                 or grid.upper != extra_grid.upper):
             raise ValueError("the two grids must share one shape and box")
-        v0, v1 = grid.values[..., None], extra_grid.values[..., None]
-        pad = torch.zeros_like(grid.grads)
-        cells = torch.cat([v0, grid.grads, v1, extra_grid.grads, pad], dim=-1)
-        return GuideTable(cells=cells.contiguous(), lower=tuple(grid.lower),
+        cells = packed_cells(((grid.values, grid.grads), (extra_grid.values, extra_grid.grads)))
+        return GuideTable(cells=cells, lower=tuple(grid.lower),
                           span=box_span(grid.lower, grid.upper),
                           wall_lo=tuple(wall_lo), wall_hi=tuple(wall_hi))
 

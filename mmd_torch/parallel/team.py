@@ -1,22 +1,25 @@
-"""Team programs: a whole team's plans on the device, agent after agent.
+"""Team programs: a whole team's plans on the device.
 
 Twin of `mmd_tpu/parallel/team.py`. JAX runs each pass as one `lax.scan`
-or `vmap`; here each is a Python loop over the agents whose carry stays on
-the device:
+or `vmap`. Here a `vmap` is a batch dimension written out: the agents'
+problems run as one sampler call of A problems (`PrioritizedTeam.
+plan_problems`, `MPD.plan_fresh_batch`); a `scan`, whose order between
+agents is real, is a Python loop over the agents whose carry stays on the
+device:
 - `plan_prioritized_scan`: prioritized planning (PP, reference
   prioritized_planning.py:46-201; JAX's `plan_prioritized_device` is
   `PrioritizedPlanning._plan_scan`). Agent i plans under hard per-waypoint
   keep-out balls around the chosen paths of the agents before it, then
   takes the free candidate with the fewest team conflicts.
 - `plan_fresh_team`: the CBS/XCBS root, every agent's unconstrained plan
-  and the root's conflict summary (team.py:26-45, 247).
+  and the root's conflict summary (team.py:26-45, 247), one sampler call.
 - `plan_sequential_root_soft`: the ECBS root (team.py:49-112, 264). Agent
   i plans under soft balls around the chosen (least-cost) paths of the
   agents before it; an agent whose batch has no free trajectory plans
   again with every ball masked.
 - `plan_fresh_team_soft`: a Jacobi repair round (team.py:318-337): every
   agent plans fresh under its own soft group (`team_soft_paths`), balls
-  around the other agents' current paths.
+  around the other agents' current paths, one sampler call.
 The chosen row is gathered with a device index. Only the ECBS root reads
 the device inside its loop: one flag per agent, whether its batch has a
 free trajectory, through the caller's `read`.
@@ -137,6 +140,16 @@ class PrioritizedTeam:
         hard = HardConds(mask=self.hard_team.mask, values=self.hard_team.values[i])
         return self.p0._plan_fresh(gd, noise, hard)
 
+    def plan_problems(self, noise_l: Sequence[SamplerNoise],
+                      balls: Optional[SoftPathConstraints] = None) -> PlanResult:
+        """Every agent's fresh plan on planner 0's program as one sampler
+        call (JAX's vmapped team programs): agent i with draws noise_l[i]
+        and no constraint but balls' i-th rows (A, R, H, ...) if given.
+        The result leads with the agent."""
+        gd = GuideData(scene=self.p0.scene, normalizer=self.p0.dataset.normalizer,
+                       constraints=self.base_cset, soft_paths=balls)
+        return self.p0.plan_fresh_batch(gd, noise_l, self.hard_team.values)
+
     def balls(self, sel_pos: torch.Tensor, mask: torch.Tensor,
               weight: torch.Tensor) -> SoftPathConstraints:
         """A ball around each (row, waypoint) of sel_pos (A, H, 2) where
@@ -229,16 +242,23 @@ def plan_fresh_team(team: PrioritizedTeam, noise_l: Sequence[SamplerNoise]) -> S
     """The CBS/XCBS root: every agent's unconstrained fresh plan, its
     least-cost free candidate, and the root's conflict summary
     (`plan_fresh_team` with `_fresh_team_with_summary`, team.py:26-45,
-    247-261), without a host sync."""
+    247-261): the A plans as one sampler call, without a host sync. Its
+    clock holds that one call."""
     clock = AgentClock(team.tmask.device)
     clock.mark()
-    outs = []
-    for i, noise in enumerate(noise_l):
-        res = team.plan_under(i, noise)
-        outs.append((res, res.idx_best))
-        clock.mark()
-    pos = torch.stack([_chosen_row(r, ix) for r, ix in outs])
-    return _team_result(outs, pos, team.margin, clock)
+    res = team.plan_problems(noise_l)
+    clock.mark()
+    return _batch_result(res, team.margin, clock)
+
+
+def _batch_result(res: PlanResult, margin: float, clock: AgentClock) -> ScanResult:
+    """A team's batched plans (fields leading with the agent) as a
+    ScanResult, each agent at its least-cost candidate."""
+    rows = torch.arange(res.idx_best.shape[0], device=res.idx_best.device)
+    pos = res.trajs_final[rows, res.idx_best][..., :2]
+    return ScanResult(trajs=res.trajs_final, free_any=res.free_mask.any(dim=-1),
+                      ix=res.idx_best, free_mask=res.free_mask,
+                      summary=team_conflict_summary(pos, margin), clock=clock)
 
 
 def plan_sequential_root_soft(team: PrioritizedTeam, noise_l: Sequence[SamplerNoise],
@@ -305,12 +325,10 @@ def plan_fresh_team_soft(team: PrioritizedTeam, soft_team: SoftPathConstraints,
                          noise_l: Sequence[SamplerNoise]) -> TeamPlans:
     """A Jacobi repair round's plans (team.py:318-337): agent i plans fresh
     with noise_l[i] and no constraint but its own soft group, soft_team's
-    i-th rows (`team_soft_paths`), without a host sync."""
-    res = [team.plan_under(i, noise, SoftPathConstraints(
-        points=soft_team.points[i], mask=soft_team.mask[i], radius=soft_team.radius[i],
-        weight=soft_team.weight[i])) for i, noise in enumerate(noise_l)]
-    return TeamPlans(trajs_final=torch.stack([r.trajs_final for r in res]),
-                     free_mask=torch.stack([r.free_mask for r in res]))
+    i-th rows (`team_soft_paths`); the A plans as one sampler call, without
+    a host sync."""
+    res = team.plan_problems(noise_l, balls=soft_team)
+    return TeamPlans(trajs_final=res.trajs_final, free_mask=res.free_mask)
 
 
 def team_select_by_conflicts(cand_all: torch.Tensor, free_all: torch.Tensor,

@@ -31,7 +31,7 @@ from mmd_torch.common.multi_agent_utils import (
     is_multi_agent_start_goal_states_valid,
 )
 from mmd_torch.config import params as default_params
-from mmd_torch.costs.constraints import pack_constraint_set
+from mmd_torch.costs.constraints import pack_constraint_sets
 from mmd_torch.costs.guide import GuideData
 from mmd_torch.experiments.status import TrialSuccessStatus
 from mmd_torch.models.diffusion import HardConds, SamplerNoise
@@ -207,16 +207,22 @@ class CBSBase:
     def _reset_timing(self):
         """`timing` of a new plan(): the host's seconds waiting on the
         device and the number of such waits (cbs.py:261), by phase in
-        `device_<phase>_s`; the plans it ran, fresh and local, and their
-        UNet forwards (the twin of JAX's `baked.UNET_EVALS`)."""
+        `device_<phase>_s`; the plans it ran, fresh and local, by problem,
+        and their UNet forwards (the twin of JAX's `baked.UNET_EVALS`); the
+        sampler calls that ran them (`sampler_calls`, the local ones also
+        in `sampler_calls_local`): a batched call plans N problems."""
         self.timing: dict = {"device_s": 0.0, "device_calls": 0, "plans_fresh": 0,
-                             "plans_local": 0, "unet_forwards": 0}
+                             "plans_local": 0, "unet_forwards": 0, "sampler_calls": 0,
+                             "sampler_calls_local": 0}
 
-    def _count_plans(self, local: bool, n: int = 1):
-        """Count n plans of one kind, and their UNet forwards (none for a
-        planner without a diffusion config)."""
+    def _count_plans(self, local: bool, n: int = 1, calls: int = 1):
+        """Count n plans of one kind run as `calls` sampler calls, and their
+        UNet forwards (none for a planner without a diffusion config)."""
         steps = default_params.n_local_inference_denoising_steps if local else None
         self.timing["plans_local" if local else "plans_fresh"] += n
+        self.timing["sampler_calls"] += calls
+        if local:
+            self.timing["sampler_calls_local"] += calls
         cfg = getattr(self.low_level_planner_l[0], "cfg", None)
         if cfg is not None:
             self.timing["unet_forwards"] += n * cfg.n_unet_forwards(steps)
@@ -335,7 +341,11 @@ class CBS(CBSBase):
     "root", "children", "expand", "summary", "greedy", "frontier" or
     "repair"); the ECBS root also reads one flag per agent, and a chain one
     flag per step; `timing` also counts the accepted greedy steps
-    ("greedy_steps") and the frontier's rounds ("frontier_rounds"). `final`
+    ("greedy_steps"), the frontier's rounds ("frontier_rounds") and the
+    sampler calls ("sampler_calls", "sampler_calls_local"): a team root
+    with every agent fresh, a repair round, a conflict's children, a
+    chain step's two children and a frontier step's 2M children are one
+    call each. `final`
     is the node `plan()` returned; `greedy_audit`,
     when a list, gets the events of the greedy steps ("step", "freeze",
     "starved", "stop").
@@ -543,7 +553,7 @@ class CBS(CBSBase):
         fresh = not self.is_ecbs or self.root_repair_rounds > 0
         if _batchable(planners) and (fresh or self.uniform_time):
             team = self._team()
-            self._count_plans(False, self.num_agents)
+            self._count_plans(False, self.num_agents, calls=1 if fresh else self.num_agents)
             if fresh:
                 out = plan_fresh_team(team, self._team_noise())
             else:
@@ -673,13 +683,13 @@ class CBS(CBSBase):
         root_noise = self._team_noise()
         fallback = self._team_noise() if self.is_ecbs else []
         chain_noise = self._chain_noise()
-        self._count_plans(False, self.num_agents)
+        self._count_plans(False, self.num_agents, calls=self.num_agents if self.is_ecbs else 1)
         out, records, n_steps = fused.root_greedy(
             team, root_noise, fallback, chain_noise, self.GREEDY_KBUFS[0],
             use_soft=self.is_ecbs, local=self.is_xcbs, k_iters=self.GREEDY_ITERS,
             sequential_root=self.is_ecbs, read_free=self._read_free,
             frozen=self._frozen("greedy"))
-        self._count_plans(self.is_xcbs, 2 * n_steps)
+        self._count_plans(self.is_xcbs, 2 * n_steps, calls=n_steps)
         free_any, ix, summary, scalars = self._fetch(
             (out.free_any, out.ix, out.summary, tuple(records[1:])), phase="root")
         self.timing["root_agent_s"] = out.clock.seconds()
@@ -702,7 +712,7 @@ class CBS(CBSBase):
         records, n_steps = fused.greedy_expand(
             self._team(), self._chain_noise(), self._carry(state, K), self.is_ecbs,
             self.is_xcbs, self.GREEDY_ITERS, self._frozen("greedy"))
-        self._count_plans(self.is_xcbs, 2 * n_steps)
+        self._count_plans(self.is_xcbs, 2 * n_steps, calls=n_steps)
         return self._process_greedy(state, records.trajs,
                                     self._fetch(tuple(records[1:]), phase="greedy"))
 
@@ -814,14 +824,16 @@ class CBS(CBSBase):
         kbuf = max(k for _, k in nodes)
         nodes = [n for n, _ in nodes]
         noise_m = [self._chain_noise() for _ in nodes]
-        outs = fused.frontier_greedy_expand(
+        records_m, n_steps, own_steps = fused.frontier_greedy_expand(
             self._team(), noise_m, [self._carry(n, kbuf) for n in nodes], self.is_ecbs,
             self.is_xcbs, self.GREEDY_ITERS, self._frozen("frontier"))
-        for _, n_steps in outs:
-            self._count_plans(self.is_xcbs, 2 * n_steps)
-        scalars_m = self._fetch([tuple(r[1:]) for r, _ in outs], phase="frontier")
+        scalars_m, own_steps = self._fetch(([tuple(r[1:]) for r in records_m], own_steps),
+                                           phase="frontier")
+        # Plans by problem, each chain's own (as run alone before the
+        # lockstep); the calls, one a lockstep step.
+        self._count_plans(self.is_xcbs, 2 * int(own_steps.sum()), calls=n_steps)
         accepted = 0
-        for node, (records, _), scalars in zip(nodes, outs, scalars_m):
+        for node, records, scalars in zip(nodes, records_m, scalars_m):
             acc = self._process_greedy(node, records.trajs, scalars, validate=False)
             if acc == 0:
                 self.expand(node)
@@ -857,7 +869,7 @@ class CBS(CBSBase):
         paths = root.paths_all
         prev_pos = _best_paths_pos(paths, root.ix_best)
         soft_team = team_soft_paths(prev_pos, default_params.vertex_constraint_radius)
-        self._count_plans(False, self.num_agents)
+        self._count_plans(False, self.num_agents, calls=1)
         res = plan_fresh_team_soft(self._team(), soft_team, self._team_noise())
         accept_d, ix_d, *summary_d = repair_accept(res.trajs_final[..., :2], res.free_mask,
                                                    prev_pos, self.margin)
@@ -893,11 +905,13 @@ class CBS(CBSBase):
 
     def _expand_children_batched(self, state: SearchState, constraints: dict,
                                  H_all: int) -> bool:
-        """Every child of the conflict in one pass on planner 0's program
-        (JAX cbs.py:1041-1130): uniform start times, the least-collisions
-        choice, batchable planners. An ECBS child whose batch the soft balls
-        starved replans with its hard CT constraints only. Returns whether
-        it handled the expansion."""
+        """Every child of the conflict as one sampler call on planner 0's
+        program (JAX cbs.py:1041-1130), their constraint sets padded to a
+        common (K, P): uniform start times, the least-collisions choice,
+        batchable planners. The ECBS children whose batches the soft balls
+        starved replan with their hard CT constraints only, as a second
+        call of those children (JAX cbs.py:1108). Returns whether it
+        handled the expansion."""
         if not (self.uniform_time and constraints
                 and self.choose_path_strategy == "least_collisions"):
             return False
@@ -907,12 +921,7 @@ class CBS(CBSBase):
             return False
         p0 = planners[0]
         children = [self._child(state, a, constraints[a], H_all) for a in agent_ids]
-        csets = []
-        for child, a in zip(children, agent_ids):
-            hard_l = _plannable(child.constraints[a])
-            csets.append(pack_constraint_set(hard_l, len(hard_l),
-                                             max(len(c.q_l) for c in hard_l),
-                                             device=self.device))
+        hard_ls = [_plannable(child.constraints[a]) for child, a in zip(children, agent_ids)]
         hard_c = stack_hard_conds([p.hard_conds for p in planners])
         paths_all = state.paths_all
         ix_best = to_device(state.ix_best, self.device, torch.int64)
@@ -921,13 +930,14 @@ class CBS(CBSBase):
         soft_weight = torch.full((), default_params.weight_grad_cost_soft_constraints, **kw)
 
         def run(use_soft: bool, which: List[int]):
-            self._count_plans(self.is_xcbs, len(which))
+            self._count_plans(self.is_xcbs, len(which), calls=1)
             # Rows by int index and a stack: a list index would copy it
             # from the host and wait for the card.
             values = torch.stack([hard_c.values[c] for c in which])
             return expand_children(
                 p0, HardConds(mask=hard_c.mask, values=values),
-                [csets[c] for c in which], [self._draw(self.is_xcbs) for _ in which],
+                pack_constraint_sets([hard_ls[c] for c in which], device=self.device),
+                [self._draw(self.is_xcbs) for _ in which],
                 paths_all, ix_best, [agent_ids[c] for c in which], self.margin,
                 soft_radius, soft_weight, use_soft=use_soft, local=self.is_xcbs)
 

@@ -60,7 +60,7 @@ class PrioritizedPlanning(CBSBase):
         """The PP pass on the device, read once; the plan() tuple, or None
         when an agent had no free candidate (the host loop then reruns,
         with its failure semantics, prioritized_planning.py:66-73)."""
-        self._count_plans(False, len(noise_l))
+        self._count_plans(False, len(noise_l), calls=len(noise_l))
         out = plan_prioritized_scan(PrioritizedTeam.of(self.low_level_planner_l, self.margin),
                                    noise_l)
         free_any, ix, summary, best = self._fetch(

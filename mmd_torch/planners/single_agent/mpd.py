@@ -9,6 +9,14 @@ free/collision, score (path length + smoothness), select the best free
 trajectory and savgol-smooth (mpd.py:354-405). With `bf16` the UNet's
 forward alone runs in bfloat16; guide, posterior, finalize and selection
 stay float32.
+
+`plan_fresh_batch` and `plan_local_batch` plan N problems of the
+planner's program (one model, scene and config; each problem its own hard
+conditions, draws, constraints and, locally, seed batch) as one sampler
+call, as JAX vmaps `_plan_fresh` and `_plan_local`: the finalize then
+classifies all N * B trajectories in one lookup launch and every
+`PlanResult` field leads with N. A single plan is the same code without
+the leading axis.
 """
 from __future__ import annotations
 
@@ -51,6 +59,8 @@ from mmd_torch.utils.metrics import (
 
 @dataclasses.dataclass(frozen=True)
 class PlanResult:
+    # Shapes of one plan; N problems' fields lead with N (JAX's vmapped
+    # PlanResult), trajs_iters (N, S+1, B, H, D).
     trajs_iters: torch.Tensor       # (S+1, B, H, D) unnormalized chain
     trajs_final: torch.Tensor       # (B, H, D) savgol-smoothed final
     free_mask: torch.Tensor         # (B,) bool
@@ -65,6 +75,9 @@ class PlanResult:
 @torch.no_grad()
 def _finalize_plan(chain_norm: torch.Tensor, normalizer, scene, radius: float,
                    q_min, q_max, savgol: torch.Tensor) -> PlanResult:
+    """The chain (S+1, B, H, D), or N problems' (S+1, N, B, H, D), as a
+    PlanResult: all N * B trajectories classified in one lookup, scored and
+    smoothed together; the best index per problem."""
     trajs_iters = normalizer.unnormalize(chain_norm)
     trajs_final = trajs_iters[-1]
     free_mask, wp_coll = classify_trajs(scene, trajs_final, radius, q_min, q_max)
@@ -73,14 +86,14 @@ def _finalize_plan(chain_norm: torch.Tensor, normalizer, scene, radius: float,
     cost_all = torch.where(free_mask, c_len + c_smooth,
                            torch.full_like(c_len, float("inf")))
     return PlanResult(
-        trajs_iters=trajs_iters,
-        trajs_final=torch.einsum("ij,bjd->bid", savgol, trajs_final),
+        trajs_iters=trajs_iters.movedim(0, -4),
+        trajs_final=torch.einsum("ij,...bjd->...bid", savgol, trajs_final),
         free_mask=free_mask,
         wp_collisions=wp_coll,
         cost_path_length=c_len,
         cost_smoothness=c_smooth,
         cost_all=cost_all,
-        idx_best=torch.argmin(cost_all),
+        idx_best=torch.argmin(cost_all, dim=-1),
         variance_waypoints=compute_variance_waypoints(trajs_final),
     )
 
@@ -184,6 +197,28 @@ class MPD:
             n_denoising_steps=default_params.n_local_inference_denoising_steps)
         return _finalize_plan(chain, gd.normalizer, self.scene, self.robot.radius,
                               self.robot.q_min, self.robot.q_max, self._savgol)
+
+    def plan_fresh_batch(self, gd: GuideData, noise_l: Sequence[SamplerNoise],
+                         hard_values: torch.Tensor) -> PlanResult:
+        """N fresh problems as one sampler call (JAX's vmap of `_plan_fresh`):
+        problem n under the hard-condition values hard_values[n] (H, D), the
+        draws noise_l[n] and `gd`'s n-th constraints (`gd` leads with N, or
+        holds none). Every field of the result leads with N."""
+        return self._plan_fresh(gd, SamplerNoise.stack(noise_l), self._hard_batch(hard_values))
+
+    def plan_local_batch(self, gd: GuideData, seeds_norm: torch.Tensor,
+                         noise_l: Sequence[SamplerNoise],
+                         hard_values: torch.Tensor) -> PlanResult:
+        """N local replans as one sampler call (JAX's vmap of `_plan_local`),
+        problem n warm-started from the normalized batch seeds_norm[n]
+        (N, B, H, D); otherwise as `plan_fresh_batch`."""
+        return self._plan_local(gd, seeds_norm, SamplerNoise.stack(noise_l),
+                                self._hard_batch(hard_values))
+
+    def _hard_batch(self, hard_values: torch.Tensor) -> HardConds:
+        """(N, H, D) start/goal values as N problems' conditions under the
+        planner's mask."""
+        return HardConds(mask=self.hard_conds.mask, values=hard_values[:, None])
 
     def draw_noise(self, local: bool = False) -> SamplerNoise:
         """One loop's draws from the planner's generator: a fresh loop's,

@@ -7,8 +7,11 @@ rate with its binomial standard error at n trials, the collisions over all
 trials and the success-conditioned adherence, beside JAX's (read from its
 `analyzed_results__<instance>.txt` as text, no JAX class unpickled); each
 trial's status beside JAX's status of the same problem (its
-results.txt, as text); and the kernel launches the cell's trials made, by
-their own counts of their plans (`expected_launches`).
+results.txt, as text); the cell's mean CT expansions and root seconds (the
+sum of `team_timing`'s `root_agent_s`), its plans and sampler calls, fresh
+and local, and the local sampler calls an expansion; and the kernel
+launches the cell's trials made, by their own counts of their sampler
+calls (`expected_launches`).
 """
 from __future__ import annotations
 
@@ -52,23 +55,29 @@ def text_aggregate(path: str) -> Dict:
 
 def expected_launches(trials, grid_tiles: int, cfg: DiffusionConfig = DiffusionConfig()) -> Dict:
     """The kernel launches that the trials' plans make on the card, by the
-    plan counts each trial saved (`team_timing`): the collision guide once
-    a guide call (280 a fresh plan and 80 a local replan at the default
-    schedule), the lookup once a tile a plan (the finalize), and once a grid
-    tile for each of the team's two checks of its starts and goals."""
+    plan and sampler-call counts each trial saved (`team_timing`): the
+    collision guide once a guide call of a sampler call (280 a fresh call
+    and 80 a local one at the default schedule, whatever its number of
+    problems), the lookup once a tile a sampler call (the finalize), and
+    once a grid tile for each of the team's two checks of its starts and
+    goals."""
     per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
     per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
-    out = {"plans_fresh": 0, "plans_local": 0, "collision_guide": 0, "grid_sdf_lookup": 0}
+    out = {"plans_fresh": 0, "plans_local": 0, "sampler_calls": 0, "collision_guide": 0,
+           "grid_sdf_lookup": 0}
     for r in trials:
-        fresh, local = r.team_timing["plans_fresh"], r.team_timing["plans_local"]
+        t = r.team_timing
+        fresh, local = t["plans_fresh"], t["plans_local"]
+        calls, calls_local = t["sampler_calls"], t["sampler_calls_local"]
         n_tiles = {len(skeleton) for skeleton in r.agent_skeleton_l}
         if len(n_tiles) != 1:
             raise ValueError(f"skeletons of several lengths {n_tiles}: a plan's lookups "
                              f"are not one number")
         out["plans_fresh"] += fresh
         out["plans_local"] += local
-        out["collision_guide"] += per_fresh * fresh + per_local * local
-        out["grid_sdf_lookup"] += n_tiles.pop() * (fresh + local) + 2 * grid_tiles
+        out["sampler_calls"] += calls
+        out["collision_guide"] += per_fresh * (calls - calls_local) + per_local * calls_local
+        out["grid_sdf_lookup"] += n_tiles.pop() * calls + 2 * grid_tiles
     return out
 
 
@@ -86,8 +95,10 @@ def pair(port_dir: str, jax_dir: Optional[str]) -> str:
         theirs = text_aggregate(os.path.join(jax_dir, os.path.basename(agg))) if jax_dir else {}
         lines += [f"### {instance}", "",
                   "| agents | planner | success (port +- se; JAX) | collisions, all trials "
-                  "| adherence | plans fresh / local | launches guide / lookup | "
-                  "trials, port / JAX |", "|---|---|---|---|---|---|---|---|"]
+                  "| adherence | expansions, mean | root s, mean | plans fresh / local | "
+                  "sampler calls fresh / local | local calls an expansion | "
+                  "launches guide / lookup | trials, port / JAX |",
+                  "|---|---|---|---|---|---|---|---|---|---|---|---|"]
         for (n, planner), d in ours.items():
             rel = os.path.join(f"instance_name___{instance}", f"num_agents___{n}",
                                f"planner___{planner}")
@@ -107,12 +118,18 @@ def pair(port_dir: str, jax_dir: Optional[str]) -> str:
                 jax_status = (text_status(jt[0]) if jt else None) or "-"
                 pairs.append(f"{text_status(os.path.join(t, 'results.txt'))[:9]}/"
                              f"{jax_status[:9]}")
+            n_exp = sum(r.num_ct_expansions for r in trials)
+            root_s = sum(sum(r.team_timing.get("root_agent_s") or [0.0]) for r in trials)
+            calls_local = sum(r.team_timing["sampler_calls_local"] for r in trials)
+            per_exp = f"{calls_local / n_exp:.2f}" if n_exp else "-"
             se = math.sqrt(d["success_rate"] * (1 - d["success_rate"]) / d["num_trials"])
             success = beside("success_rate", ".2f").replace(";", f" +- {se:.2f};", 1)
             lines.append(f"| {n} | {planner} | {success} | "
                          f"{beside('avg_collisions_all_trials', '.2f')} | "
                          f"{beside('avg_data_adherence', '.4f')} | "
+                         f"{n_exp / len(trials):.1f} | {root_s / len(trials):.2f} | "
                          f"{k['plans_fresh']} / {k['plans_local']} | "
+                         f"{k['sampler_calls'] - calls_local} / {calls_local} | {per_exp} | "
                          f"{k['collision_guide']} / {k['grid_sdf_lookup']} | "
                          + ", ".join(pairs) + " |")
         lines.append("")

@@ -30,12 +30,12 @@ def compute_average_acceleration(trajs: torch.Tensor, q_dim: int = 2) -> torch.T
 
 def compute_variance_waypoints(trajs: torch.Tensor, q_dim: int = 2) -> torch.Tensor:
     """Sum over waypoints of the variance of the pairwise inter-sample
-    distances (metrics.py:18-29). (B, H, D) -> scalar. As the reference,
-    the variance runs over the whole flattened (B, B) upper triangle, its
-    zeroed diagonal and lower part included."""
-    per_t = trajs[..., :q_dim].transpose(0, 1)  # (H, B, q)
-    d = torch.linalg.vector_norm(per_t[:, :, None, :] - per_t[:, None, :, :], dim=-1)
-    B = trajs.shape[0]
+    distances (metrics.py:18-29). (B, H, D) -> scalar, (N, B, H, D) ->
+    (N,). As the reference, the variance runs over the whole flattened
+    (B, B) upper triangle, its zeroed diagonal and lower part included."""
+    per_t = trajs[..., :q_dim].transpose(-3, -2)  # (..., H, B, q)
+    d = torch.linalg.vector_norm(per_t[..., :, None, :] - per_t[..., None, :, :], dim=-1)
+    B = trajs.shape[-3]
     upper = torch.ones((B, B), dtype=torch.bool, device=trajs.device).triu(1)
-    tri = torch.where(upper[None], d, torch.zeros((), dtype=d.dtype, device=d.device))
-    return torch.var(tri.reshape(d.shape[0], -1), dim=-1, correction=1).sum()
+    tri = torch.where(upper, d, torch.zeros((), dtype=d.dtype, device=d.device))
+    return torch.var(tri.flatten(-2), dim=-1, correction=1).sum(-1)

@@ -35,6 +35,7 @@ from mmd_torch.parallel.team import PrioritizedTeam, plan_prioritized_scan
 from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
 from mmd_torch.planners.single_agent.mpd import load_planners
 from mmd_torch.tools.guide_cases import HINGE_CUTOFF, tied_scene, waypoints
+from mmd_torch.tools.row_chunked import RowChunked
 
 pytestmark = pytest.mark.gpu
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -208,8 +209,9 @@ def test_xecbs_search_launches_by_plan_kind_syncs_only_to_read_and_replays_exact
         monkeypatch):
     """A 3-agent XECBS search on the dense circle (B=8, 2 guide iterations a
     step, the bfloat16 UNet): the collision guide launches once per guide
-    call of each plan (fresh and local, by the search's own count) and the
-    lookup once per plan; every host sync of the search comes from
+    call of each sampler call (fresh and local, by the search's own count;
+    a chain step's two children are one call) and the lookup once per call;
+    every host sync of the search comes from
     `cbs.to_host`; with the generators restored and both kernels routed to
     their plain versions the search is equal."""
     _need_card()
@@ -242,9 +244,9 @@ def test_xecbs_search_launches_by_plan_kind_syncs_only_to_read_and_replays_exact
                      and first <= w.lineno < first + len(lines))]
     assert not stray, stray
     cfg, t = planners[0].cfg, search.timing
-    want = (2 * (cfg.n_guided_steps() * t["plans_fresh"]
-                 + cfg.n_guided_steps(3) * t["plans_local"]),
-            t["plans_fresh"] + t["plans_local"])
+    local = t["sampler_calls_local"]
+    fresh = t["sampler_calls"] - local
+    want = (2 * (cfg.n_guided_steps() * fresh + cfg.n_guided_steps(3) * local), fresh + local)
     assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == want
     assert t["plans_fresh"] >= 3 and len(paths) == 3
     final = search.final
@@ -263,8 +265,8 @@ def test_greedy_chain_on_the_card_syncs_only_to_read(monkeypatch):
     """One greedy chain on the card (XECBS, 3-agent dense circle, B=8, 2
     guide iterations a step) from the split root: every host sync of the
     call comes from `cbs.to_host`, one flag read a step and the records'
-    read; the collision guide launches once per guide call of each child
-    replan and the lookup once per child."""
+    read; the collision guide launches once per guide call of each step's
+    sampler call (both children) and the lookup once per call."""
     _need_card()
     import inspect
 
@@ -298,12 +300,72 @@ def test_greedy_chain_on_the_card_syncs_only_to_read(monkeypatch):
     assert not stray, stray
     t = search.timing
     assert accepted >= 1 and search.greedy_audit[0][0] == "step"
-    children = t["plans_local"]
-    assert children >= 2 and children % 2 == 0
-    assert t["device_greedy_calls"] <= children // 2 + 1
+    children, calls = t["plans_local"], t["sampler_calls_local"]
+    assert children >= 2 and children == 2 * calls  # a step's two children, one call
+    assert t["device_greedy_calls"] <= calls + 1
     cfg = planners[0].cfg
     assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
-        (2 * cfg.n_guided_steps(3) * children, children)
+        (2 * cfg.n_guided_steps(3) * calls, calls)
+
+
+@pytest.mark.parametrize("shape", [(64, 379), (640, 379)], ids=["plan", "batched"])
+def test_lookup_equals_plain_at_the_finalize_shapes(shape):
+    """The redesigned lookup at a plan's and a 10-problem batched
+    finalize's points: exactly the plain version, one launch a call."""
+    _need_card()
+    scene = make_env("EnvConveyor2D", "cuda").scene
+    tables = [(scene.grid.values, scene.grid.grads),
+              (scene.extra_grid.values, scene.extra_grid.grads)]
+    pts = torch.from_numpy(query_points(shape[0] * shape[1], scene.grid, 11)).cuda()
+    pts = pts.reshape(*shape, 2)
+    want = grid_lookup_plain(pts, tables, scene.grid.lower, scene.grid.upper)
+    before = grid_lookup.launches
+    got = grid_lookup_cuda(pts, tables, scene.grid.lower, scene.grid.upper)
+    torch.cuda.synchronize()
+    assert grid_lookup.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sdf_kernel.packed_cells(tables) is scene.guide_table.cells
+
+
+def test_batched_call_launches_once_and_matches_looped_steps():
+    """Three agents' fresh plans as one sampler call on the card (B=8, 2
+    guide iterations a step): one collision-guide launch a guide call and
+    one lookup for all three; each DDPM step of its chain, with the UNet
+    run 8 rows at a time (cuDNN chooses its convolution algorithm by batch
+    size), against the agent's single step fed the same x, within 1e-3."""
+    _need_card()
+    from mmd_torch.models import diffusion
+    from mmd_torch.models.diffusion import HardConds, SamplerNoise
+
+    starts, goals = get_start_goal_pos_circle(3, radius=0.3)
+    planners = load_planners(os.path.join(ROOT, "data_trained_models"),
+                             os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
+                             starts, goals, device="cuda")
+    for p in planners:
+        p.cfg = dataclasses.replace(p.cfg, n_samples=8, n_guide_steps=2)
+    load_kernels()
+    team = PrioritizedTeam.of(planners, planners[0].robot.rr_margin)
+    p0, cfg = team.p0, planners[0].cfg
+    g = torch.Generator(device="cuda").manual_seed(0)
+    noise_l = [SamplerNoise.draw(cfg, g, "cuda") for _ in range(3)]
+    before = (collision_guide.launches, grid_lookup.launches)
+    res = team.plan_problems(noise_l)
+    assert res.trajs_final.shape[:2] == (3, 8)
+    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
+        (cfg.n_guided_steps() * cfg.n_guide_steps, 1)
+    hard = HardConds(mask=team.hard_team.mask, values=team.hard_team.values[:, None])
+    gd = GuideData(scene=p0.scene, normalizer=p0.dataset.normalizer,
+                   constraints=team.base_cset)
+    noise = SamplerNoise.stack(noise_l)
+    _, chain = diffusion.guided_p_sample_loop(RowChunked(p0.model, cfg.n_samples), p0.schedule,
+                                              hard, cfg, noise, gd=gd, guide_cfg=p0.guide_cfg)
+    for k, i in enumerate(cfg.step_indices()):
+        for a in range(3):
+            single = diffusion._ddpm_step(
+                p0.model, p0.schedule, chain[k, a], i, noise.steps[k, a],
+                HardConds(mask=hard.mask, values=team.hard_team.values[a]), gd, cfg,
+                p0.guide_cfg, i < cfg.t_start_guide)
+            assert float((single - chain[k + 1, a]).abs().max()) <= 1e-3, (i, a)
 
 
 def test_bf16_forward_on_the_card_is_within_its_tolerance_of_f32():

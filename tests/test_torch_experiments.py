@@ -357,7 +357,8 @@ def _fake_trial(raise_on=()):
         r = experiments.MultiAgentPlanningSingleTrialResult(
             trial_config=cfg, success_status=TrialSuccessStatus.SUCCESS, planning_time=1.0,
             global_model_ids=cfg.global_model_ids, agent_skeleton_l=cfg.agent_skeleton_l,
-            team_timing={"plans_fresh": 2, "plans_local": 1})
+            team_timing={"plans_fresh": 2, "plans_local": 1, "sampler_calls": 3,
+                         "sampler_calls_local": 1})
         r.save(experiments.get_result_dir_from_trial_config(cfg, cfg.time_str,
                                                             cfg.trial_number, root=results_root))
         return r
@@ -466,10 +467,11 @@ def test_pair_sweeps_puts_each_trial_beside_jaxs(tmp_path, monkeypatch):
     jutils.combine_and_save_results_for_experiment(jcfg, str(tmp_path / "jax"))
     text = pair_sweeps.pair(str(tmp_path / "port" / "sweep"), str(tmp_path / "jax" / "sweep"))
     (row,) = [line for line in text.splitlines() if line.startswith("| 2 | PP |")]
-    # 2 trials of 2 fresh and 1 local plans: 2 x (2 x 280 + 80) guide launches,
-    # 2 x (3 plans x 1 tile + 2 checks x 1 grid tile) lookups.
-    assert row == ("| 2 | PP | 1.00 +- 0.00; 0.50 | 0.00; 2.00 | 0.0000; 0.0000 | 4 / 2 | "
-                   "1280 / 10 | SUCCESS/SUCCESS, SUCCESS/FAIL_COLL |")
+    # 2 trials of 2 fresh and 1 local plans, each plan a sampler call of its
+    # own, and no expansion: 2 x (2 x 280 + 80) guide launches, 2 x (3 calls
+    # x 1 tile + 2 checks x 1 grid tile) lookups.
+    assert row == ("| 2 | PP | 1.00 +- 0.00; 0.50 | 0.00; 2.00 | 0.0000; 0.0000 | 0.0 | "
+                   "0.00 | 4 / 2 | 4 / 2 | - | 1280 / 10 | SUCCESS/SUCCESS, SUCCESS/FAIL_COLL |")
     alone = pair_sweeps.pair(str(tmp_path / "port" / "sweep"), None)
     assert "| 2 | XECBS | 1.00 +- 0.00; - | 0.00; - |" in alone and "SUCCESS/-" in alone
 
@@ -591,7 +593,7 @@ def _count_kernel_calls(monkeypatch):
 
 def _launches(trials, grid_tiles):
     want = pair_sweeps.expected_launches(trials, grid_tiles, SHORT)
-    del want["plans_fresh"], want["plans_local"]
+    del want["plans_fresh"], want["plans_local"], want["sampler_calls"]
     return want
 
 

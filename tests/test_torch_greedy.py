@@ -37,7 +37,7 @@ from mmd_tpu.models import diffusion as jdiff
 from mmd_tpu.models.diffusion import HardConds as JHardConds
 from mmd_tpu.planners.multi_agent import cbs as jcbs
 from mmd_tpu.planners.multi_agent import fused as jfused
-from mmd_torch.costs.constraints import ConstraintSet
+from mmd_torch.costs.constraints import ConstraintSet, SoftPathConstraints
 from mmd_torch.models import diffusion as tdiff
 from mmd_torch.planners.multi_agent import cbs as tcbs
 from mmd_torch.planners.multi_agent import fused
@@ -138,15 +138,31 @@ def run_port_chain(setup, node, jrecords, keys, starved: bool, monkeypatch):
     team = tcbs.PrioritizedTeam.of(tps, tps[0].robot.rr_margin)
     seen = []
 
-    def child_plan(p0, gd, hard, paths, agent, noise, local):
-        s, c = divmod(len(seen), 2)
-        seen.append(dict(s=s, c=c, gd=gd, hard=hard, agent=int(agent), noise=noise,
-                         seed=paths[int(agent)]))
-        B = paths.shape[1]
-        return types.SimpleNamespace(trajs_final=torch.from_numpy(jrecords[0][s, c]),
-                                     free_mask=torch.from_numpy(free_pattern(B, starved)))
+    def children_plan(p0, gd, hard_values, seed_paths, noise_l, local):
+        # A step's two children, one batched call: each child's inputs
+        # are its row of the batch.
+        s = len(seen) // 2
+        assert len(noise_l) == 2 and not len(seen) % 2
+        spc = gd.soft_paths
+        for c, noise in enumerate(noise_l):
+            agent = next(i for i, p in enumerate(tps)
+                         if torch.equal(p.hard_conds.values, hard_values[c]))
+            cset = ConstraintSet(n_active=1, **{
+                f.name: getattr(gd.constraints, f.name)[c]
+                for f in dataclasses.fields(ConstraintSet) if f.name != "n_active"})
+            soft = SoftPathConstraints(points=spc.points[c], mask=spc.mask[c],
+                                       radius=spc.radius[c], weight=spc.weight[c])
+            seen.append(dict(s=s, c=c, gd=dataclasses.replace(gd, constraints=cset,
+                                                              soft_paths=soft),
+                             hard=tdiff.HardConds(mask=p0.hard_conds.mask,
+                                                  values=hard_values[c]),
+                             agent=agent, noise=noise, seed=seed_paths[c]))
+        B = seed_paths.shape[1]
+        return types.SimpleNamespace(
+            trajs_final=torch.from_numpy(jrecords[0][s]),
+            free_mask=torch.from_numpy(np.stack([free_pattern(B, starved)] * 2)))
 
-    monkeypatch.setattr(fused, "_plan_child", child_plan)
+    monkeypatch.setattr(fused, "_plan_children", children_plan)
     cfg = tps[0].cfg
     noise = [[rebuilt_local_noise(keys[s, c], cfg) for c in range(2)] for s in range(K_ITERS)]
     carry = fused.Carry(

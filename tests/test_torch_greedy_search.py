@@ -252,12 +252,13 @@ def test_root_greedy_matches_split_path(monkeypatch):
 
 def test_root_greedy_conflict_free_root_skips_child_compute(monkeypatch):
     """A conflict-free root plans no child: the chain starts frozen. The
-    counter of child plans does fire on a root that keeps its conflict
-    (a head-on swap with independent roots)."""
+    counter of child plans (each batched children's call counts its
+    problems) does fire on a root that keeps its conflict (a head-on swap
+    with independent roots)."""
     child_plans = []
-    real = fused._plan_child
-    monkeypatch.setattr(fused, "_plan_child",
-                        lambda *a: child_plans.append(1) or real(*a))
+    real = fused._plan_children
+    monkeypatch.setattr(fused, "_plan_children",
+                        lambda *a: child_plans.extend([1] * len(a[4])) or real(*a))
     starts = [np.array([-0.7, -0.7], np.float32), np.array([0.7, 0.7], np.float32)]
     goals = [np.array([-0.7, 0.7], np.float32), np.array([0.7, -0.7], np.float32)]
     cbs = CBS(_planners(starts, goals), starts, goals, is_ecbs=True, is_xcbs=True)
@@ -328,21 +329,34 @@ def test_frontier_child_matches_greedy_first_iteration():
     np.testing.assert_array_equal(f_mid[0].numpy(), g.mid[0].numpy())
 
 
-def test_frontier_greedy_matches_per_node_greedy():
+def test_frontier_greedy_matches_per_node_greedy(monkeypatch):
     """`frontier_greedy_expand` (M=2: the root twice, with draws of their
-    own) makes each node's `greedy_expand` records exactly."""
+    own) runs the chains in lockstep, one sampler call of 2M children a
+    step, and makes each node's `greedy_expand` records and step count
+    exactly; it runs as many steps as the longer chain, reading one flag a
+    step."""
     cbs = _xecbs()
     root = _root_node(cbs)
     team, K = cbs._team(), cbs.GREEDY_KBUFS[0]
     noise_m = [cbs._chain_noise()[:2] for _ in range(2)]
-    outs = fused.frontier_greedy_expand(team, noise_m, [cbs._carry(root, K)] * 2, True, True,
-                                        2, frozen=lambda d: bool(d))
+    calls, reads = [], []
+    real = fused._plan_children
+    monkeypatch.setattr(fused, "_plan_children",
+                        lambda *a: calls.append(len(a[4])) or real(*a))
+    records, n_run, own_steps = fused.frontier_greedy_expand(
+        team, noise_m, [cbs._carry(root, K)] * 2, True, True, 2,
+        frozen=lambda d: reads.append(bool(d)) or bool(d))
+    assert calls == [4] * n_run and reads == [n_run == 1]
+    ns = []
     for m in range(2):
+        calls.clear()
         g, n = fused.greedy_expand(team, noise_m[m], cbs._carry(root, K), True, True, 2,
                                    frozen=lambda d: bool(d))
-        assert outs[m][1] == n
-        for got, want in zip(outs[m][0], g):
+        assert calls == [2] * n
+        ns.append(n)
+        for got, want in zip(records[m], g):
             assert torch.equal(got, want)
+    assert n_run == max(ns) and own_steps.tolist() == ns
 
 
 def test_frontier_width_search_sound(monkeypatch):
