@@ -187,15 +187,36 @@ this file. Phases, one short line each:
    least one frontier round of two nodes, and launch exactly what its
    sampler-call counts say (280 / 80 guide calls a call, one lookup a call
    and one for each of the team's two checks)
-11. one JSON line of kernel numbers (launches: this slice's path, phase 15;
-   launches by path: the four plans of phase 5, the team plan of
+16. baselines (after phase 15, before the report): `mmd_torch.tools.
+   bench_kernels` once (the lookup against its plain version at 4096 and
+   65536 points, which must match); then (a) CHOMP, STOMP, MPPI and
+   stochastic GPMP (`mmd_torch.datagen.classical`) at their configs'
+   defaults for BASELINE_PARTICLES copies of the straight line of
+   BASELINE_TASK on EnvConveyor2D, (b) one full-width MPD plan on the
+   EnvConveyor2D checkpoint with the guide's knobs of ZOO_GUIDE
+   (interpolated collision and three zoo terms), (c) the planar arm's
+   `plan_arm_gpmp2` at its defaults (16 particles, H=64, 400 iterations) on
+   EnvDropRegion2D from along +x to along +y. Each runs after a short
+   warm-up under torch's sync debug mode "error" (a host wait inside it
+   fails the phase), must launch the lookup exactly once an iteration (a
+   + 0, (b) once a guide call + 1 and no collision guide, (c) 400 + 1), and
+   must equal its replay with the lookup routed to its plain version, the
+   generator restored. It prints each run's seconds, launches and outcome
+   (waypoints in collision and free particles before and after; the plan's
+   free samples; the arm's free particles, at least one), and the lookup's
+   device time, wrapper and plain ms and bound at each run's shape
+11. one JSON line of kernel numbers (launches: the sum over the paths,
+   each counted from 0 just before it and read just after; phase 16's
+   paths, this slice's, launch no collision guide; launches by path: the
+   four plans of phase 5, the team plan of
    phase 7, the two searches of phase 8, phase 9's two plans, search and PP team,
-   phase 10's, phases 12, 13 and 14's, and phase 15's two; ms, plain and
-   bound: the collision
+   phase 10's, phases 12, 13 and 14's, phase 15's two and phase 16's six;
+   ms, plain and bound: the collision
    guide at phase 9's stacked (3, 64, 64, 4), with phase 4's (64, 64, 4)
    beside them; `launch_floor_us`: the device time of a 1-element `fill_`
    from a profiler trace, the least a launch costs; the lookup's numbers at
-   both phase 3 shapes), then the contract line
+   both phase 3 shapes and at phase 16's, and bench_kernels' rows), then the
+   contract line
    {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
@@ -330,6 +351,19 @@ DENSE_INSTANCE = "EnvConveyor2DRobotPlanarDiskRandom"
 DENSE_AGENTS, DENSE_TRIAL, DENSE_RUNTIME_LIMIT, DENSE_WIDTH = 12, 1, 60.0, 2
 VD_MODELS = os.path.join(ROOT, "data_trained_models_vd")
 VD_DATA = os.path.join(ROOT, "data_trajectories_vd")
+# The baselines (phase 16): the four classical optimizers at their configs'
+# defaults for BASELINE_PARTICLES copies of the straight line through
+# EnvConveyor2D's centre box (tests/test_classical.py's task); one
+# full-width MPD plan on the EnvConveyor2D checkpoint with the guide's
+# collision on the 1.5x-interpolated trajectory and three zoo terms, each
+# weighted as the collision term (ZOO_GUIDE); the planar arm's GPMP2 at its
+# defaults on EnvDropRegion2D (tests/test_kinematics.py's problem).
+BASELINE_PARTICLES, BASELINE_SEED = 64, 0
+BASELINE_TASK = ((-0.8, -0.02), (0.8, -0.02))
+ZOO_GUIDE = dict(interpolate_collision=True, weight_max_velocity=2e-2, max_velocity=0.5,
+                 weight_chomp_smoothness=2e-2, weight_joint_limits=2e-2)
+ARM_LINKS, ARM_LINK_LENGTH = 3, 0.2
+ARM_GOAL = (1.5707963267948966, 0.0, 0.0)  # from along +x to along +y
 
 _phase = ["start"]
 
@@ -725,6 +759,9 @@ def main() -> int:
     phase("speculative")
     speculative = run_speculative_phase(dev, cfg, plain_lookup)
 
+    phase("baselines")
+    baselines = run_baselines_phase(dev, plain_lookup)
+
     phase("report")
     floor_us = launch_floor_us()
     print(f"report: launch floor (a 1-element fill_) {floor_us:.4f} us on the device")
@@ -738,19 +775,23 @@ def main() -> int:
         by_path["datagen"] = generated["launches"][name]
         by_path["experiments"] = experiments["launches"][name]
         by_path.update({k: v[name] for k, v in speculative["launches"].items()})
-        # This slice's path: the speculative search and repair of phase 15.
-        return {"launches": sum(v[name] for v in speculative["launches"].values()),
-                "launches_by_path": by_path, "launch_floor_us": floor_us}
+        by_path.update({k: v[name] for k, v in baselines["launches"].items()})
+        # Every path of the run, each counted from 0 just before it and read
+        # just after: phase 16, this slice's, bypasses the collision guide.
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path,
+                "launch_floor_us": floor_us}
 
     stacked = tiles["kernel"]
     kernels = [{
         "name": "grid_sdf_lookup", "route": "cuda", "source": "mmd_torch/csrc/grid_sdf.cu",
         "replaces": sdf_kernel.REPLACES, **launches("grid_sdf_lookup"),
-        "max_abs_err": max(lookup_err, trained["lookup_err"]), "ms": lookup_ms,
+        "max_abs_err": max(lookup_err, trained["lookup_err"], baselines["lookup_err"]),
+        "ms": lookup_ms,
         "plain_ms": lookup_plain_ms,
         "bound_ms": lookup_bound_ms, "bound_by": "bytes", "library_ms": None,
         "shapes": {str(list(shape)): {k: v for k, v in t.items()}
                    for shape, t in lookup_at.items()},
+        "baseline_shapes": baselines["lookup_at"], "bench_kernels": baselines["bench_kernels"],
     }, {
         "name": "collision_guide", "route": "cuda",
         "source": "mmd_torch/csrc/collision_guide.cu", "replaces": cg.REPLACES,
@@ -768,6 +809,7 @@ def main() -> int:
                       "train": trained["summary"], "eval": evaluated["summary"],
                       "datagen": generated["summary"], "experiments": experiments["summary"],
                       "speculative": speculative["summary"],
+                      "baselines": baselines["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3)}))
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
@@ -2027,6 +2069,231 @@ def run_speculative_phase(dev, cfg, plain_lookup):
     summary["phase_s"] = time.perf_counter() - t_phase
     print(f"speculative: phase {summary['phase_s']:.2f} s")
     return {"launches": launches, "summary": summary}
+
+
+class FirstPoints:
+    """Wraps `sdf_kernel.grid_lookup_cuda`, keeping the first call's points
+    since `points` was set to None (a copy on the card, so no host wait),
+    for the phase to time the kernel at the shape the run gave it: an
+    iteration's or a guide call's, not the final classification's."""
+
+    def __init__(self, kept):
+        self.kept, self.points = kept, None
+
+    def __call__(self, points, *args):
+        if self.points is None:
+            self.points = points.detach().clone()
+        return self.kept(points, *args)
+
+
+def _same(a, b) -> bool:
+    """Equal, NaN where the other is NaN."""
+    import torch
+
+    if a.is_floating_point():
+        a, b = torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b, nan=7.0)
+    return torch.equal(a, b)
+
+
+def _sync_free(fn):
+    """fn() under torch's sync debug mode "error" (a host wait raises),
+    timed from a synchronize to a synchronize: (result, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_baselines_phase(dev, plain_lookup):
+    """Phase 16 (module docstring): the classical optimizers, a knob-guided
+    MPD plan and the planar arm's GPMP2, each sync-free, counted and replayed
+    with the plain lookup; the lookup timed at their shapes; bench_kernels."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mmd_torch.costs.guide import GuideConfig, GuideData
+    from mmd_torch.datagen import classical
+    from mmd_torch.envs.envs import make_env
+    from mmd_torch.ops import sdf_kernel
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
+    from mmd_torch.robots import kinematics
+    from mmd_torch.tasks.task import make_task
+    from mmd_torch.tools import bench_kernels
+    from mmd_torch.tools.profile_plan import _busy_us, _traced
+
+    t_phase = time.perf_counter()
+    rows = bench_kernels.bench()
+    for row in rows:
+        print(f"baselines: bench_kernels n={row['points']}: plain {row['plain_us']:.1f}us  "
+              f"kernel {row['kernel_us']:.1f}us  match={row['match']}")
+    if not all(row["match"] for row in rows):
+        raise RuntimeError(f"bench_kernels: the kernel and its plain version differ: {rows}")
+
+    launches, summary, lookup_at, traces = {}, {}, {}, {}
+    recorder = FirstPoints(sdf_kernel.grid_lookup_cuda)
+
+    def measured(name, fn, want_lookups, generator=None, want_guides=0):
+        """One run of fn under sync debug mode "error", its launches counted
+        and held, then its replay with the plain lookup (the generator
+        restored), which must be equal."""
+        state = None if generator is None else generator.get_state()
+        recorder.points = None
+        grid_lookup.launches = collision_guide.launches = 0  # baselines path starts
+        with routed(sdf_kernel, "grid_lookup_cuda", recorder):
+            out, seconds = _sync_free(fn)
+        got = {"grid_sdf_lookup": grid_lookup.launches,
+               "collision_guide": collision_guide.launches}  # baselines path ends
+        if got != {"grid_sdf_lookup": want_lookups, "collision_guide": want_guides}:
+            raise RuntimeError(f"{name} launched {got}, expected {want_lookups} lookups and "
+                               f"{want_guides} collision guides")
+        if generator is not None:
+            generator.set_state(state)
+        with plain_lookup():
+            replay = fn()
+        outs = out if isinstance(out, tuple) else (out,)
+        reps = replay if isinstance(replay, tuple) else (replay,)
+        same = all(_same(a, b) for a, b in zip(outs, reps))
+        if not same:
+            raise RuntimeError(f"{name}: the kernel's and the plain lookup's runs differ")
+        # Where its time goes: the same run traced (device kernels only).
+        if generator is not None:
+            generator.set_state(state)
+        _, events = _traced(fn, host=False)
+        busy_s = _busy_us(events) / 1e6
+        by_name = {}
+        for e in events:
+            by_name[e.name[:50]] = by_name.get(e.name[:50], 0.0) + e.time_range.elapsed_us()
+        traces[name] = {"kernels": len(events), "busy_s": busy_s,
+                        "idle_share": 1.0 - busy_s / seconds,
+                        "top_us": sorted(by_name.items(), key=lambda kv: -kv[1])[:3]}
+        pts = recorder.points
+        at = time_lookup(scene, tables, pts)
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            grid_lookup_cuda(pts, tables, *box), grid_lookup_plain(pts, tables, *box)))
+        lookup_at[name] = {"shape": list(pts.shape), **at, "max_abs_err": err}
+        launches[name] = got
+        return out, seconds
+
+    # (a) the four classical optimizers.
+    task = make_task("EnvConveyor2D", dev)
+    scene = task.scene
+    tables = ((scene.grid.values, scene.grid.grads),
+              (scene.extra_grid.values, scene.extra_grid.grads))
+    box = (scene.grid.lower, scene.grid.upper)
+    (sx, sy), (gx, gy) = BASELINE_TASK
+    start = torch.tensor([sx, sy, 0.0, 0.0], device=dev)
+    goal = torch.tensor([gx, gy, 0.0, 0.0], device=dev)
+    t = torch.linspace(0.0, 1.0, 64, device=dev)[:, None]
+    pos = (1 - t) * start[:2] + t * goal[:2]
+    line = torch.cat([pos, torch.gradient(pos, dim=0)[0] / (5.0 / 64.0)], dim=-1)
+    init = line.expand(BASELINE_PARTICLES, -1, -1).contiguous()
+
+    def collisions(trajs):
+        hit = task.compute_collision(trajs[..., :2])
+        return int(hit.sum()), int((~hit.any(dim=-1)).sum())
+
+    before = collisions(init)
+    optimizers = [("chomp", classical.chomp_optimize, classical.CHOMPConfig(), False),
+                  ("stomp", classical.stomp_optimize, classical.STOMPConfig(), True),
+                  ("mppi", classical.mppi_optimize, classical.MPPIConfig(), True),
+                  ("stoch_gpmp", classical.stoch_gpmp_optimize, classical.StochGPMPConfig(),
+                   True)]
+    for k, (name, fn, cfg, sampled) in enumerate(optimizers):
+        gen = torch.Generator(device=dev).manual_seed(BASELINE_SEED + k) if sampled else None
+        kw = {"generator": gen} if sampled else {}
+        fn(scene, start, goal, init, dataclasses.replace(cfg, opt_iters=2), **kw)  # warm-up
+        out, seconds = measured(name, lambda: fn(scene, start, goal, init, cfg, **kw),
+                                cfg.opt_iters, gen)
+        after = collisions(out)
+        print(f"baselines: {name} ({BASELINE_PARTICLES} particles, {cfg.opt_iters} iterations) "
+              f"in {seconds:.3f} s, no host wait; lookups {launches[name]['grid_sdf_lookup']}; "
+              f"waypoints in collision {before[0]} -> {after[0]}, free particles {before[1]} "
+              f"-> {after[1]}; the plain-lookup replay equal")
+        if not torch.isfinite(out).all() or out.shape != init.shape:
+            raise RuntimeError(f"{name}: output not finite of {tuple(init.shape)}")
+        summary[name] = {"seconds": seconds, "iterations": cfg.opt_iters,
+                         "collisions_before": before[0], "collisions_after": after[0],
+                         "free_before": before[1], "free_after": after[1]}
+
+    # (b) a full-width MPD plan with the guide's knobs.
+    planner = load_planner("EnvConveyor2D", *CONVEYOR_TASK, dev)
+    planner.guide_cfg = dataclasses.replace(planner.guide_cfg, **ZOO_GUIDE)
+    guide_calls = planner.cfg.n_guided_steps() * planner.cfg.n_guide_steps
+    cset, spc = planner._pack(None)
+    gd = GuideData(scene=planner.scene, normalizer=planner.dataset.normalizer,
+                   constraints=cset, soft_paths=spc)
+    planner._plan_fresh(gd, planner.draw_noise(), planner.hard_conds)  # warm-up
+    noise = planner.draw_noise()
+
+    def zoo_plan():
+        r = planner._plan_fresh(gd, noise, planner.hard_conds)
+        return r.trajs_final, r.free_mask
+
+    (trajs_final, free_mask), seconds = measured("zoo_guided_plan", zoo_plan, guide_calls + 1)
+    free = int(free_mask.sum())
+    print(f"baselines: MPD plan on EnvConveyor2D with {ZOO_GUIDE} in {seconds:.3f} s, no host "
+          f"wait; lookups {launches['zoo_guided_plan']['grid_sdf_lookup']} ({guide_calls} guide "
+          f"calls + the finalize), collision guides 0; free samples {free} of "
+          f"{free_mask.numel()}; the plain-lookup replay equal")
+    if not torch.isfinite(trajs_final).all():
+        raise RuntimeError("the knob-guided plan is not finite")
+    summary["zoo_guided_plan"] = {"seconds": seconds, "free": free,
+                                  "samples": int(free_mask.numel()),
+                                  "guide": {k: v for k, v in ZOO_GUIDE.items()}}
+    if GuideConfig(**ZOO_GUIDE).collision_kernel_applies:
+        raise RuntimeError("the knob-guided plan took the collision kernel")
+
+    # (c) the planar arm's GPMP2 on EnvDropRegion2D.
+    scene = make_env("EnvDropRegion2D", dev).scene
+    tables = ((scene.grid.values, scene.grid.grads),
+              (scene.extra_grid.values, scene.extra_grid.grads))
+    box = (scene.grid.lower, scene.grid.upper)
+    tree = kinematics.make_planar_arm(ARM_LINKS, link_length=ARM_LINK_LENGTH, device=dev)
+    q_start = torch.zeros(ARM_LINKS, device=dev)
+    q_goal = torch.tensor(ARM_GOAL, device=dev)
+    straight_hits = bool(kinematics.arm_scene_collision(tree, scene, 0.5 * (q_start + q_goal)))
+    gen = torch.Generator(device=dev).manual_seed(BASELINE_SEED)
+    kinematics.plan_arm_gpmp2(tree, scene, q_start, q_goal, generator=gen, opt_iters=2)
+    (trajs, free), seconds = measured(
+        "arm_gpmp2", lambda: kinematics.plan_arm_gpmp2(tree, scene, q_start, q_goal,
+                                                      generator=gen),
+        400 + 1, gen)
+    n_free = int(free.sum())
+    print(f"baselines: planar arm GPMP2 (3 links of {ARM_LINK_LENGTH}, 16 particles, H=64, 400 "
+          f"iterations) on EnvDropRegion2D in {seconds:.3f} s, no host wait; lookups "
+          f"{launches['arm_gpmp2']['grid_sdf_lookup']}; the straight joint path collides "
+          f"{straight_hits}; free particles {n_free} of {free.numel()}; the plain-lookup "
+          f"replay equal")
+    if n_free == 0 or not straight_hits:
+        raise RuntimeError(f"arm GPMP2: {n_free} free particles, straight path collides "
+                           f"{straight_hits}")
+    summary["arm_gpmp2"] = {"seconds": seconds, "free": n_free, "particles": int(free.numel()),
+                            "nan_particles": int(torch.isnan(trajs).flatten(1).any(1).sum())}
+    for name, tr in traces.items():
+        print(f"baselines: {name} traced: {tr['kernels']} kernels, device busy "
+              f"{tr['busy_s']:.4f} s of the untraced {summary[name]['seconds']:.4f} s (idle "
+              f"share {tr['idle_share']:.3f}); most device time: "
+              + ", ".join(f"{n} {us:.0f} us" for n, us in tr["top_us"]))
+        summary[name]["trace"] = tr
+    for name, at in lookup_at.items():
+        print(f"baselines: lookup at {name}'s {tuple(at['shape'])}: {at['device_us']:.4f} us a "
+              f"launch on the device, wrapper {at['ms']:.5f} ms, plain {at['plain_ms']:.5f} ms, "
+              f"bound {at['bound_ms']:.6f} ms ({at['bytes']} B, {at['cells']} cells)")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"baselines: phase {summary['phase_s']:.2f} s")
+    return {"launches": launches, "summary": summary, "lookup_at": lookup_at,
+            "lookup_err": max(at["max_abs_err"] for at in lookup_at.values()),
+            "bench_kernels": rows}
 
 
 if __name__ == "__main__":

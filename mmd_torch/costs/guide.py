@@ -13,11 +13,20 @@ guides.py:152-234). Quirks kept as the JAX package keeps them:
   (hard 2e-1 / soft 2e-2, mpd.py:409-412)
 - collision costs skip waypoint 0 (FieldFactor traj_range [1, None]) and use
   margin = 1.1 radius + 0.01 on the 64 support points: the reference's
-  intended 1.5x interpolation never reaches its costs (guides.py:202)
+  intended 1.5x interpolation never reaches its costs (guides.py:202);
+  `interpolate_collision=True` turns the intended one on
 - the result is the negative weighted gradient sum (guides.py:224-226)
 The two collision terms run as one CUDA kernel on the card
 (`mmd_torch/ops/collision_guide.py`) and as `collision_guide_plain`, their
 autograd code, on the CPU.
+
+The optional knobs are JAX's (`mmd_tpu/costs/guide.py:67-78`): collision
+on the 1.5x-interpolated trajectory, or on the extra objects only, and the
+cost zoo's terms (`mmd_torch/costs/zoo.py`), each clipped, zeroed at the
+endpoints and weighted; a zero weight adds no term. The collision kernel
+covers neither collision knob, so a config that sets one takes the
+autograd code on every device (its lookup is still the lookup kernel on
+the card).
 
 A multi-tile plan guides its T tiles in one call, as JAX's vmap of the
 guided step over tiles does (mmd_tpu/models/ensemble.py:119-131): x is
@@ -50,10 +59,13 @@ from mmd_torch.costs.constraints import (
     soft_path_cost,
 )
 from mmd_torch.costs.gp import gp_trajectory_cost
+from mmd_torch.costs.zoo import cost_joint_limits, cost_max_velocity, cost_smoothness_chomp
 from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.envs.envs import SceneData, SceneStack
+from mmd_torch.envs.grid_sdf import grid_sdf_pair
 from mmd_torch.ops.collision_guide import collision_guide
 from mmd_torch.tasks.task import boundary_signed_distances, scene_object_sdf
+from mmd_torch.utils.interp import interpolate_points
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,11 +77,28 @@ class GuideConfig:
     weight_collision: float = default_params.weight_grad_cost_collision
     weight_smoothness: float = default_params.weight_grad_cost_smoothness
     max_grad_norm: float = 1.0
+    interpolate_collision: bool = False
+    num_interpolated_points: int = 96      # ceil(64 * 1.5), mpd.py:263
+    # Guide only on the env's extra objects (reference
+    # use_guide_on_extra_objects_only, mmd_params.py:32, mpd.py:215-221).
+    use_extra_objects_only: bool = False
+    # Optional cost-zoo terms (costs/zoo.py); a zero weight adds no term.
+    weight_max_velocity: float = 0.0
+    max_velocity: float = 0.0
+    weight_chomp_smoothness: float = 0.0
+    weight_joint_limits: float = 0.0
+    joint_limit_eps: float = 0.05236  # np.deg2rad(3), cost_functions.py:585
 
     @property
     def collision_margin(self) -> float:
         # link margin (1.1 r, robot_planar_disk.py:68) + cutoff margin
         return 1.1 * self.robot_radius + self.obstacle_cutoff_margin
+
+    @property
+    def collision_kernel_applies(self) -> bool:
+        """Whether the collision-guide kernel computes this config's
+        collision terms: it reads the 64 support points and both grids."""
+        return not (self.interpolate_collision or self.use_extra_objects_only)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,12 +112,18 @@ class GuideData:
 
 
 def _collision_points(u: torch.Tensor, cfg: GuideConfig) -> torch.Tensor:
+    if cfg.interpolate_collision:
+        u = interpolate_points(u, cfg.num_interpolated_points)
     return u[..., 1:, : cfg.q_dim]  # skip waypoint 0 (FieldFactor range [1, None])
 
 
 def collision_cost_objects(u: torch.Tensor, scene: SceneData, cfg: GuideConfig) -> torch.Tensor:
     """(B, H, D) unnormalized -> (B,): relu(margin - sdf) summed over H."""
-    sd = scene_object_sdf(scene, _collision_points(u, cfg))
+    q = _collision_points(u, cfg)
+    if cfg.use_extra_objects_only:
+        sd = grid_sdf_pair(scene.grid, scene.extra_grid, q)[1]
+    else:
+        sd = scene_object_sdf(scene, q)
     return relu(cfg.collision_margin - sd).sum(dim=-1)
 
 
@@ -135,6 +170,11 @@ def collision_gradient(u: torch.Tensor, scene: SceneData, cfg: GuideConfig) -> t
 
     CUDA tensors go to the kernel, CPU tensors to the plain version.
     """
+    if not cfg.collision_kernel_applies:
+        # The kernel reads the 64 support points and both grids; the
+        # interpolated or extra-objects-only terms are its autograd code,
+        # whose lookup is the lookup kernel on the card.
+        return collision_guide_plain(u, scene, cfg)
     if u.is_cuda:
         return collision_guide(u, scene, cfg)
     if u.device.type == "cpu":
@@ -157,6 +197,23 @@ def _constraint_gradient(u: torch.Tensor, cset: ConstraintSet, cfg: GuideConfig)
     return g_cons.reshape(-1, K, *batch).sum(dim=1).reshape(u.shape)
 
 
+def _zoo_terms(u: torch.Tensor, normalizer: LimitsNormalizer, cfg: GuideConfig):
+    """The cost zoo's terms of nonzero weight, each clipped, zeroed at the
+    endpoints and weighted, in JAX's order (guide.py:155-170); none when
+    every weight is 0."""
+    if cfg.weight_max_velocity > 0.0:
+        g = _grad(lambda v: cost_max_velocity(v, cfg.dt, cfg.max_velocity, cfg.q_dim), u)
+        yield cfg.weight_max_velocity * _finish(g, cfg.max_grad_norm)
+    if cfg.weight_chomp_smoothness > 0.0:
+        g = _grad(lambda v: cost_smoothness_chomp(v, cfg.dt), u)
+        yield cfg.weight_chomp_smoothness * _finish(g, cfg.max_grad_norm)
+    if cfg.weight_joint_limits > 0.0:
+        lo = normalizer.mins[..., : cfg.q_dim]
+        hi = normalizer.maxs[..., : cfg.q_dim]
+        g = _grad(lambda v: cost_joint_limits(v, lo, hi, cfg.joint_limit_eps, cfg.q_dim), u)
+        yield cfg.weight_joint_limits * _finish(g, cfg.max_grad_norm)
+
+
 def guide_gradient(x_norm: torch.Tensor, gd: GuideData, cfg: GuideConfig) -> torch.Tensor:
     """One guide evaluation. x_norm (B, H, D), or (T, B, H, D) with a tile
     stack's `gd`, or N problems' (N, B, H, D) -> the step to add to it
@@ -164,10 +221,13 @@ def guide_gradient(x_norm: torch.Tensor, gd: GuideData, cfg: GuideConfig) -> tor
     with torch.enable_grad():
         u = gd.normalizer.unnormalize(x_norm.detach())
         # Both collision terms, weighted and clipped: one kernel launch on
-        # the card, the autograd of the two costs above on the CPU.
+        # the card, the autograd of the two costs above on the CPU or under
+        # a collision knob (`collision_gradient`).
         total = collision_gradient(u, gd.scene, cfg)
         g_gp = _grad(lambda v: gp_trajectory_cost(v, cfg.dt), u)
         total = total + cfg.weight_smoothness * _finish(g_gp, cfg.max_grad_norm)
+        for term in _zoo_terms(u, gd.normalizer, cfg):
+            total = total + term
 
         if gd.constraints.n_active > 0:
             total = total + _constraint_gradient(u, gd.constraints, cfg)

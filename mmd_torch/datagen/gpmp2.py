@@ -18,6 +18,17 @@ on the card). The derivatives follow JAX's rules at ties: `minimum` and
 `maximum` give each tied side half, `min` over the walls splits evenly
 among tied walls, and relu(x) at x = 0 has slope 0.5.
 
+An articulated robot passes `coll_fn` (JAX's static argument of the same
+name, `mmd_tpu/datagen/gpmp2.py:49-58`): it maps the interior states
+(P, H-1, D) to the signed clearances (P, H-1, S) of its collision spheres
+and their derivatives in the positions (P, H-1, S, q_dim). The collision
+rows are then the (H-1) x S relu(-clearance) / sigma_coll, in JAX's order
+(t major), each with its q_dim derivatives at waypoint t + 1.
+`mmd_torch.robots.kinematics.arm_clearances_and_jacobian` is one. Without
+it the factor is the disk's, as above. With it the iteration builds the
+damped J^T J and J^T r from J's structure (`_damped_normal_equations`)
+instead of the dense product: the same sums in another order.
+
 Each iteration solves (J^T J + delta diag(J^T J) + 1e-9 I) d = -J^T r by a
 Cholesky factor in float32, as JAX does, and steps theta += step_size d
 (reference _step / get_torch_solve, gpmp2.py:310-493). Where a factor fails
@@ -95,6 +106,16 @@ def _tie_weights(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.
     return wa, wb
 
 
+def _relu_rows(clearance: torch.Tensor, cfg: GPMP2Config) -> Tuple[torch.Tensor, torch.Tensor]:
+    """relu(-clearance) / sigma_coll and its derivative in the clearance:
+    -1 / sigma (JAX's 1 / sigma in float32) where the relu is active, half
+    that at 0."""
+    r = torch.clamp(-clearance, min=0.0) / cfg.sigma_coll
+    inv_sigma = float(_f32(1.0) / _f32(cfg.sigma_coll))
+    slope = torch.where(clearance < 0, 1.0, torch.where(clearance == 0, 0.5, 0.0))
+    return r, -inv_sigma * slope
+
+
 def _collision(theta: torch.Tensor, scene: SceneData, cfg: GPMP2Config
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The collision residuals (P, H-1) and their derivatives with respect
@@ -108,13 +129,7 @@ def _collision(theta: torch.Tensor, scene: SceneData, cfg: GPMP2Config
     walls = boundary_signed_distances(scene, pos)                  # (P, H-1, 4)
     sd_walls = walls.min(dim=-1).values
     clearance = torch.minimum(sd_obj, sd_walls) - cfg.collision_margin
-    r = torch.clamp(-clearance, min=0.0) / cfg.sigma_coll
-
-    # d r / d clearance: -1 / sigma (JAX's 1 / sigma in float32) where the
-    # relu is active, half that at 0.
-    inv_sigma = float(_f32(1.0) / _f32(cfg.sigma_coll))
-    slope = torch.where(clearance < 0, 1.0, torch.where(clearance == 0, 0.5, 0.0))
-    ct = -inv_sigma * slope
+    r, ct = _relu_rows(clearance, cfg)
     w_obj, w_walls = _tie_weights(sd_obj, sd_walls)
     w_a, w_b = _tie_weights(vals[0], vals[1])
     ct_obj = ct * w_obj
@@ -125,6 +140,52 @@ def _collision(theta: torch.Tensor, scene: SceneData, cfg: GPMP2Config
     hit = (walls == sd_walls[..., None]).to(theta.dtype)
     share = (ct * w_walls / hit.sum(-1))[..., None] * hit
     return r, grad + (share[..., :q_dim] - share[..., q_dim:])
+
+
+def _collision_rows(theta: torch.Tensor, cfg: GPMP2Config, coll_fn
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A `coll_fn`'s collision residuals (P, H-1, S) and each one's
+    derivatives in the positions of its waypoint t + 1 (P, H-1, S, q_dim)."""
+    clearance, d_clear = coll_fn(theta[:, 1:])
+    r, ct = _relu_rows(clearance, cfg)
+    return r, ct[..., None] * d_clear
+
+
+@functools.lru_cache(maxsize=16)
+def _device_damped_gram(H: int, D: int, cfg: GPMP2Config, device: torch.device) -> torch.Tensor:
+    """C^T C + delta diag(C^T C) + 1e-9 I of the start, goal and GP rows C
+    of J, once on the device."""
+    const = _device_constants(H, D, cfg, device)[2]
+    gram = const.mT @ const
+    eye = torch.eye(H * D, dtype=gram.dtype, device=device)
+    return gram + cfg.delta * torch.diag_embed(torch.diagonal(gram)) + 1e-9 * eye
+
+
+def _damped_normal_equations(theta: torch.Tensor, start_state: torch.Tensor,
+                             goal_state: torch.Tensor, cfg: GPMP2Config, coll_fn
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(J^T J + delta diag(J^T J) + 1e-9 I (P, N, N), J^T r (P, N, 1)) with
+    a `coll_fn`'s collision factor, from J's structure rather than a dense
+    product: the C rows' part is constant, and collision row (t, s) touches
+    only waypoint t + 1's positions, so its part of J^T J is a
+    (q_dim, q_dim) block on that waypoint's diagonal (an arm's (H-1) S rows
+    would make the dense J^T J ~10x the rest of the iteration)."""
+    P, H, D = theta.shape
+    phi, L, const = _device_constants(H, D, cfg, theta.device)
+    r_fixed = torch.cat([(theta[:, 0] - start_state) / cfg.sigma_start,
+                         (theta[:, -1] - goal_state) / cfg.sigma_goal,
+                         ((theta[:, 1:] - theta[:, :-1] @ phi.T) @ L).reshape(P, -1)], dim=-1)
+    r_coll, grad = _collision_rows(theta, cfg, coll_fn)     # (P, H-1, S), (P, H-1, S, q)
+    q_dim = grad.shape[-1]
+    blocks = torch.einsum("ptsi,ptsj->pijt", grad, grad)    # (P, q, q, H-1)
+    damped = _device_damped_gram(H, D, cfg, theta.device).expand(P, -1, -1).clone()
+    # The diagonal blocks: [p, i, j, t] is damped[p, t D + i, t D + j].
+    damped.view(P, H, D, H, D).diagonal(dim1=1, dim2=3)[:, :q_dim, :q_dim, 1:] += blocks
+    damped.diagonal(dim1=-2, dim2=-1).unflatten(-1, (H, D))[:, 1:, :q_dim] += \
+        cfg.delta * blocks.diagonal(dim1=1, dim2=2)
+    g = const.mT @ r_fixed[..., None]
+    g.view(P, H, D)[:, 1:, :q_dim] += torch.einsum("pts,ptsi->pti", r_coll, grad)
+    return damped, g
 
 
 def residuals_and_jacobian(theta: torch.Tensor, scene: SceneData, start_state: torch.Tensor,
@@ -149,16 +210,19 @@ def residuals_and_jacobian(theta: torch.Tensor, scene: SceneData, start_state: t
 
 
 def gauss_newton_step(theta: torch.Tensor, scene: SceneData, start_state: torch.Tensor,
-                      goal_state: torch.Tensor, cfg: GPMP2Config) -> torch.Tensor:
+                      goal_state: torch.Tensor, cfg: GPMP2Config, coll_fn=None) -> torch.Tensor:
     """One damped Gauss-Newton iteration of every particle (gpmp2.py:103-111)."""
     P, H, D = theta.shape
-    r, J = residuals_and_jacobian(theta, scene, start_state, goal_state, cfg)
-    Jt = J.mT
-    JtJ = Jt @ J
-    g = Jt @ r[..., None]
-    eye = torch.eye(H * D, dtype=theta.dtype, device=theta.device)
-    damped = JtJ + cfg.delta * torch.diag_embed(torch.diagonal(JtJ, dim1=-2, dim2=-1)) \
-        + 1e-9 * eye
+    if coll_fn is None:
+        r, J = residuals_and_jacobian(theta, scene, start_state, goal_state, cfg)
+        Jt = J.mT
+        JtJ = Jt @ J
+        g = Jt @ r[..., None]
+        eye = torch.eye(H * D, dtype=theta.dtype, device=theta.device)
+        damped = JtJ + cfg.delta * torch.diag_embed(torch.diagonal(JtJ, dim1=-2, dim2=-1)) \
+            + 1e-9 * eye
+    else:
+        damped, g = _damped_normal_equations(theta, start_state, goal_state, cfg, coll_fn)
     factor, info = torch.linalg.cholesky_ex(damped)
     # JAX's cho_factor gives NaN where the factorization fails.
     factor = torch.where((info == 0)[:, None, None], factor, torch.nan)
@@ -168,11 +232,12 @@ def gauss_newton_step(theta: torch.Tensor, scene: SceneData, start_state: torch.
 
 @torch.no_grad()
 def gpmp2_optimize(scene: SceneData, start_state: torch.Tensor, goal_state: torch.Tensor,
-                   init_trajs: torch.Tensor, cfg: GPMP2Config) -> torch.Tensor:
-    """init_trajs (P, H, 4) -> optimized (P, H, 4), cfg.opt_iters damped
-    Gauss-Newton iterations on the trajectories' device (gpmp2.py:89-118).
-    A particle whose factor fails comes back NaN."""
+                   init_trajs: torch.Tensor, cfg: GPMP2Config, coll_fn=None) -> torch.Tensor:
+    """init_trajs (P, H, D) -> optimized (P, H, D), cfg.opt_iters damped
+    Gauss-Newton iterations on the trajectories' device (gpmp2.py:89-118),
+    with the collision factor of `coll_fn` if given. A particle whose
+    factor fails comes back NaN."""
     theta = init_trajs
     for _ in range(cfg.opt_iters):
-        theta = gauss_newton_step(theta, scene, start_state, goal_state, cfg)
+        theta = gauss_newton_step(theta, scene, start_state, goal_state, cfg, coll_fn)
     return theta

@@ -95,6 +95,13 @@ class Env2D:
                            grads=torch.zeros((*n, 2), dtype=torch.float32))
         return build_grid_sdf(lambda p: union_sdf([field], p), lo, hi, SDF_CELL_SIZE)
 
+    def compute_sdf_exact(self, x: torch.Tensor) -> torch.Tensor:
+        """The analytic SDF of the map's objects, the primitives its grid is
+        built from: x (..., 2) -> (...,), on x's device."""
+        f = self.box_field
+        return union_sdf([BoxField(centers=f.centers.to(x.device),
+                                   half_sizes=f.half_sizes.to(x.device))], x)
+
     def get_skill_pos_seq_l(self, start_pos=None, goal_pos=None,
                             rng: Optional[np.random.Generator] = None
                             ) -> Optional[List[np.ndarray]]:

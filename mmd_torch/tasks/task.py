@@ -11,6 +11,8 @@ Twin of `mmd_tpu/tasks/task.py` (reference: torch_robotics/tasks/tasks.py).
 - free configurations are drawn by rejection: a batch of uniform
   candidates on the device, filtered there, survivors picked on the host
   (tasks.py:105-131)
+- the soft collision cost of a waypoint sums the objects' hinge and the
+  walls' largest hinge at the link margin + 0.01 (tasks.py:230-234)
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from mmd_torch.costs.constraints import relu
 from mmd_torch.envs.envs import WS_BOUNDARY_SCALE, Env2D, SceneData, make_env
 from mmd_torch.envs.grid_sdf import grid_sdf_pair
 from mmd_torch.robots.disk import DiskRobot
@@ -46,6 +49,16 @@ def waypoint_in_collision(scene: SceneData, q: torch.Tensor, margin: float) -> t
     obj_coll = scene_object_sdf(scene, q) < margin
     bound_coll = torch.any(boundary_signed_distances(scene, q) < margin, dim=-1)
     return obj_coll | bound_coll
+
+
+def compute_collision_cost_sdf(scene: SceneData, q: torch.Tensor, margin: float) -> torch.Tensor:
+    """Soft collision cost a waypoint, q (..., 2) -> (...,): relu(margin -
+    sdf) of the objects plus the walls' largest relu(margin - sd)
+    (distance_fields.py:115-129; the task-level query of tasks.py:230-234
+    sums the two fields, the guide keeps them apart)."""
+    obj = relu(margin - scene_object_sdf(scene, q))
+    bound = relu(margin - boundary_signed_distances(scene, q)).amax(dim=-1)
+    return obj + bound
 
 
 def classify_trajs(scene: SceneData, trajs: torch.Tensor, radius: float,
@@ -101,6 +114,12 @@ class PlanningTask:
         """States (..., D) -> (...,) bool: the position in collision with the
         map or its walls, at the robot's radius."""
         return waypoint_in_collision(self.scene, self.robot.get_position(x), self.margin)
+
+    def compute_collision_cost(self, x: torch.Tensor) -> torch.Tensor:
+        """States (..., D) -> (...,) soft collision cost at the robot's link
+        margin plus the obstacle cutoff margin, 0.01 (tasks.py:29)."""
+        return compute_collision_cost_sdf(self.scene, self.robot.get_position(x),
+                                          self.robot.collision_link_margin + 0.01)
 
     def get_trajs_collision_and_free(self, trajs: torch.Tensor, num_interpolation: int = 5
                                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -7,6 +7,7 @@ Twin of `mmd_tpu/utils/interp.py`:
   (reference: torch_robotics/trajectory/utils.py:73-87)
 - `savgol_matrix` ~ scipy.signal.savgol_filter(window, order, mode='interp')
   as one (H, H) matrix (reference: mmd/common/trajectory_utils.py:31-52)
+- `finite_difference_vector` ~ torch_robotics/trajectory/utils.py:89-100
 """
 from __future__ import annotations
 
@@ -57,3 +58,21 @@ def savgol_matrix(n: int, window: int = 10, order: int = 2) -> np.ndarray:
     out = np.stack(cols, axis=1).astype(np.float32)
     out.setflags(write=False)  # cached and shared: read-only
     return out
+
+
+def finite_difference_vector(x: torch.Tensor, dt: float = 1.0,
+                             method: str = "central") -> torch.Tensor:
+    """Finite differences along the horizon (..., H, D), one-sided at the
+    borders (reference: torch_robotics/trajectory/utils.py:89-100; the cost
+    zoo's own version, `mmd_torch/costs/zoo.py`, zeroes the borders)."""
+    if method == "central":
+        inner = (x[..., 2:, :] - x[..., :-2, :]) / (2 * dt)
+        first = (x[..., 1:2, :] - x[..., 0:1, :]) / dt
+        last = (x[..., -1:, :] - x[..., -2:-1, :]) / dt
+        return torch.cat([first, inner, last], dim=-2)
+    d = (x[..., 1:, :] - x[..., :-1, :]) / dt
+    if method == "forward":
+        return torch.cat([d, d[..., -1:, :]], dim=-2)
+    if method == "backward":
+        return torch.cat([d[..., :1, :], d], dim=-2)
+    raise ValueError(method)

@@ -570,3 +570,108 @@ def test_spawned_launcher_workers_launch_the_lookup_after_cuda_init(tmp_path):
     assert all(isinstance(o, dict) for o in out), out
     assert [o["launches"] for o in out] == [1, 1] and [o["max_abs_err"] for o in out] == [0.0, 0.0]
     assert os.getpid() not in {o["pid"] for o in out}
+
+
+def _plain_lookup(monkeypatch):
+    """Route the lookup kernel's wrapper to its plain version."""
+    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
+
+
+def test_knob_guide_launches_the_lookup_and_no_collision_guide(monkeypatch):
+    """With a collision knob the guide takes its autograd code, whose lookup
+    is the kernel: one lookup a call and no collision-guide launch, and the
+    step equals the one over the plain lookup exactly."""
+    _need_card()
+    load_kernels()
+    scene = make_env("EnvConveyor2D", "cuda").scene
+    gd = GuideData(scene=scene,
+                   normalizer=LimitsNormalizer.from_limits([-1] * 4, [1] * 4, "cuda"),
+                   constraints=empty_constraint_set(1, 1, device="cuda"))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1.1, 1.1, (64, 64, 4)).astype(np.float32)).cuda()
+    cfg = GuideConfig(interpolate_collision=True, use_extra_objects_only=True,
+                      weight_max_velocity=0.02, max_velocity=0.5, weight_chomp_smoothness=0.02,
+                      weight_joint_limits=0.02)
+    for knobs in (cfg, GuideConfig(interpolate_collision=True)):
+        lookups, collisions = grid_lookup.launches, collision_guide.launches
+        step = guide_gradient(x, gd, knobs)
+        assert (grid_lookup.launches - lookups, collision_guide.launches - collisions) == (1, 0)
+        with monkeypatch.context() as m:
+            _plain_lookup(m)
+            assert torch.equal(guide_gradient(x, gd, knobs), step)
+
+
+def _line(start, goal, device="cuda"):
+    t = torch.linspace(0.0, 1.0, 64, device=device)[:, None]
+    pos = (1 - t) * start[:2] + t * goal[:2]
+    return torch.cat([pos, torch.gradient(pos, dim=0)[0] / (5.0 / 64.0)], dim=-1)
+
+
+@pytest.mark.parametrize("name", ["chomp", "stomp", "mppi", "stoch_gpmp"])
+def test_classical_optimizers_launch_once_an_iteration_sync_nothing_and_replay(name,
+                                                                               monkeypatch):
+    _need_card()
+    load_kernels()
+    from mmd_torch.datagen import classical
+
+    fn, cfg = {"chomp": (classical.chomp_optimize, classical.CHOMPConfig(opt_iters=5)),
+               "stomp": (classical.stomp_optimize, classical.STOMPConfig(opt_iters=5)),
+               "mppi": (classical.mppi_optimize, classical.MPPIConfig(opt_iters=5)),
+               "stoch_gpmp": (classical.stoch_gpmp_optimize,
+                              classical.StochGPMPConfig(opt_iters=5))}[name]
+    scene = make_env("EnvConveyor2D", "cuda").scene
+    start = torch.tensor([-0.8, -0.02, 0.0, 0.0], device="cuda")
+    goal = torch.tensor([0.8, -0.02, 0.0, 0.0], device="cuda")
+    init = _line(start, goal).expand(8, -1, -1).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kw = {} if name == "chomp" else {"generator": gen}
+    fn(scene, start, goal, init, cfg, **kw)  # warm-up
+    state = gen.get_state()
+    before = grid_lookup.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(scene, start, goal, init, cfg, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert grid_lookup.launches - before == cfg.opt_iters
+    gen.set_state(state)
+    _plain_lookup(monkeypatch)
+    assert torch.equal(fn(scene, start, goal, init, cfg, **kw), out)
+    assert torch.isfinite(out).all()
+
+
+def test_arm_gpmp2_launches_once_an_iteration_syncs_nothing_and_replays(monkeypatch):
+    _need_card()
+    load_kernels()
+    from mmd_torch.robots import kinematics
+
+    scene = make_env("EnvDropRegion2D", "cuda").scene
+    tree = kinematics.make_planar_arm(3, link_length=0.2, device="cuda")
+    q_start, q_goal = torch.zeros(3, device="cuda"), torch.tensor([np.pi / 2, 0, 0],
+                                                                   device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = gen.get_state()
+    before = grid_lookup.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trajs, free = kinematics.plan_arm_gpmp2(tree, scene, q_start, q_goal, generator=gen,
+                                                n_particles=8, opt_iters=20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert grid_lookup.launches - before == 20 + 1
+    gen.set_state(state)
+    _plain_lookup(monkeypatch)
+    again, free_again = kinematics.plan_arm_gpmp2(tree, scene, q_start, q_goal, generator=gen,
+                                                  n_particles=8, opt_iters=20)
+    assert torch.equal(torch.nan_to_num(again, nan=7.0), torch.nan_to_num(trajs, nan=7.0))
+    assert torch.equal(free_again, free)
+
+
+def test_bench_kernels_matches_at_both_sizes():
+    _need_card()
+    load_kernels()
+    from mmd_torch.tools import bench_kernels
+
+    rows = bench_kernels.bench(n_iter=5)
+    assert [r["points"] for r in rows] == [4096, 65536] and all(r["match"] for r in rows)
