@@ -7,8 +7,9 @@ Takes no arguments and reads no environment variables; paths resolve from
 this file. Phases, one short line each:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions
-2. build: both CUDA kernels (the grid-SDF lookup and the collision guide),
-   one nvcc per source, all started together, into build/
+2. build: the three CUDA kernels (the grid-SDF lookup, the collision guide
+   and the guide loop), one nvcc per source, all started together, into
+   build/
 3. kernel: the grid-SDF kernel against its plain torch version on the
    EnvConveyor2D and EnvEmptyNoWait2D grids
    (out-of-range points, points on cell edges, ragged counts, a strided
@@ -25,14 +26,29 @@ this file. Phases, one short line each:
    grids tie everywhere, at (64, 64, 4) and (3, 64, 64, 4), with waypoints on
    cell edges, in objects, in the walls' margin, in corners and at the hinge,
    which must agree exactly; both timed at the guide's (64, 64, 4)
+17. guide loop (run after phase 4, before phase 5): the guide-loop kernel
+   (a guided step's 20 guide iterations in one launch) against its plain
+   version (`guide_loop_plain`, its lookup in plain torch too) in every
+   case of `mmd_torch.tools.guide_cases.LOOP_CASES` at full width (B=64):
+   both maps, the edge waypoints (cell edges, hinge, tied grids), a
+   constraint set of K = 3, P = 2 with an inactive row, an inactive set,
+   R = 3 soft paths, the ECBS root's R = 9 soft rows, a local replan's 8
+   constraints of 2 points, 10 problems on one scene, 3 stacked tiles, H =
+   2 and 128; each one launch, exactly equal. Then its device time a
+   launch (a profiler trace), the wrapper's ms (CUDA events) and its bound
+   (bytes, cells, operations) at the plan's (64, 64, 4), the root's, the
+   local replan's, 10 problems' and 3 tiles' shapes, and at the plan's the
+   plain version's and today's per-iteration loop's ms (20 guide_gradient
+   calls and hard.apply)
 5. slice: full-width MPD plans (B=64, H=64, 25+1 DDPM steps, guided steps
    x 20 guide iterations) on the EnvEmptyNoWait2D checkpoint for 3
    antipodal pairs of the 10-agent circle, and one EnvConveyor2D plan; each
-   must launch the collision guide once per guide call and the lookup once
-   (the finalize), and every NoWait plan must succeed
+   must launch the guide loop once per guided step (14), the collision
+   guide never and the lookup once (the finalize), and every NoWait plan
+   must succeed
 6. replay: the first NoWait plan again on the CPU with the same noise,
    whose trajs_final must agree within CPU_TOL; the EnvConveyor2D plan again
-   on the card with both kernels routed to their plain torch versions, which
+   on the card with every kernel routed to its plain torch version, which
    must agree within REPLAY_TOL; and the EnvConveyor2D plan on the CPU,
    reported beside the CPU's own change under a 1e-7 relative change of the
    initial noise
@@ -43,14 +59,14 @@ this file. Phases, one short line each:
    torch's sync debug mode, which must report no host sync inside the
    loop; then the team plan, which must take the device pass, succeed
    with no conflict (`count_conflicts` of its paths too) and launch the
-   collision guide 10 x 280 times and the lookup 10 times; then the same
-   plan replayed on the card with both kernels routed to their plain
-   versions, which must choose the same indices and agree within
+   guide loop 10 x 14 times, no collision guide and the lookup 10 times;
+   then the same plan replayed on the card with every kernel routed to its
+   plain version, which must choose the same indices and agree within
    REPLAY_TOL. It prints the team's wall seconds, each agent's seconds
    (CUDA events between the agents) and the launches. Then the ten agents
    as one batched fresh sampler call (`PrioritizedTeam.plan_problems`, the
-   CBS/XCBS root's): 280 collision-guide launches and one lookup for all
-   ten; then that call's chain with the UNet run 64 rows at a time
+   CBS/XCBS root's): 14 guide-loop launches and one lookup for all ten;
+   then that call's chain with the UNet run 64 rows at a time
    (`RowChunked`), each DDPM step within CPU_TOL of each agent's single
    step fed the same x. The UNet runs at 64 rows there because cuDNN
    chooses its convolution algorithm by batch size, so a row need not be
@@ -65,12 +81,13 @@ this file. Phases, one short line each:
    search's one reading function (`cbs.to_host`), and inside the ECBS root
    there must be at most one read per agent. Then the measured search,
    which must succeed with no conflict (`count_conflicts` of its paths
-   too) and launch the collision guide exactly 280 times per fresh
-   sampler call and 80 per local one and the lookup once per call, by the
+   too) and launch the guide loop exactly 14 times per fresh sampler call
+   and 4 per local one, no collision guide and the lookup once per call, by
+   the
    search's own count of its calls (`timing["sampler_calls"]`), with one
    local call for each chain step's two children; then the same search
    replayed on the card (the
-   generators restored) with both kernels routed to their plain versions,
+   generators restored) with every kernel routed to its plain version,
    which must make the same expansions and choose the same indices, and
    agree within REPLAY_TOL. The search takes JAX's default path, the root
    and a speculative greedy chain from it (`fused.root_greedy`): it must
@@ -86,8 +103,8 @@ this file. Phases, one short line each:
    in the root), it must read its children through that expansion and
    none through a chain, make one local sampler call a children read (a
    conflict's children, and again the ones the soft rows starved), succeed
-   with no conflict, launch 280 x fresh + 80 x local collision guides and
-   one lookup a sampler call, and replay exactly with both plain versions
+   with no conflict, launch 14 x fresh + 4 x local guide loops and one
+   lookup a sampler call, and replay exactly with every plain version
 9. tiles: multi-tile planning (`MPDEnsemble`, float32, B=64, H=64, 25+1
    DDPM steps) on the 2x2 staggered instance EnvTestTwoByTwoRobotPlanarDiskRandom
    (seed 0, 4 agents, stagger dt = 10; its 2x2 grid's tiles EnvEmptyNoWait2D,
@@ -96,15 +113,16 @@ this file. Phases, one short line each:
    EnvHighways2D, EnvEmptyNoWait2D) at (3, 64, 64, 4) against its plain
    version, exactly, and timed. Then agent 0's 3-tile skeleton plans fresh
    and then locally from that batch: each must have a free sample, its seams
-   must hold within SEAM_TOL, and each must launch the collision guide once
-   per guide call for all its tiles (280 fresh, 80 local) and the lookup
-   once per tile. Then the XECBS search through `CBS.plan`: a warm-up under
-   torch's sync debug mode (every sync from `cbs.to_host`), the search,
-   which must succeed with no conflict and launch exactly 280 x fresh + 80
-   x local collision guides and 3 x plans lookups, and its replay with both
-   kernels routed to their plain versions, which must be exact. Then PP
-   on the same team (its status printed, not held; its warm-up's syncs held
-   as XECBS's) with 280 collision guides and 3 lookups per plan
+   must hold within SEAM_TOL, and each must launch the guide loop once per
+   guided step for all its tiles (14 fresh, 4 local), no collision guide
+   and the lookup once per tile. Then the XECBS search through `CBS.plan`:
+   a warm-up under torch's sync debug mode (every sync from
+   `cbs.to_host`), the search, which must succeed with no conflict and
+   launch exactly 14 x fresh + 4 x local guide loops and 3 x plans
+   lookups, and its replay with every kernel routed to its plain version,
+   which must be exact. Then PP on the same team (its status printed, not
+   held; its warm-up's syncs held as XECBS's) with 14 guide loops and 3
+   lookups per plan
 10. train: the TemporalUnet diffusion model trained on the card at full
    width (32 x (1, 2, 4), H=64, D=4, 25 exponential steps) with the recipe
    of `mmd_torch.train.trainer` (Adam 3e-4, global-norm clip 1.0, EMA 0.995
@@ -125,7 +143,7 @@ this file. Phases, one short line each:
    through the kernel and the plain version on its points, exactly), a checkpoint
    saved under build/ and loaded back (the EMA weights exactly), and one
    full-width MPD plan with the loaded model, which must launch the
-   collision guide 280 times and the lookup once. It prints the logged and
+   guide loop 14 times, no collision guide and the lookup once. It prints the logged and
    validation losses, ms a step (CUDA events) and steps a second of both
    precisions, kernels a step, the summary and the plan
 12. eval (run after phase 10, before the report): `evaluate` of
@@ -135,9 +153,10 @@ this file. Phases, one short line each:
    DDIM. Each float32 DDPM row must succeed on every task and lie within
    EVAL_FREE_BAND (fraction-free) and EVAL_ADHERENCE_BAND (adherence) below
    MODEL_EVAL.yaml's JAX row; the bf16 and DDIM rows are printed beside
-   JAX's. Every plan must launch the collision guide 280 times (60 for DDIM:
-   3 guided substeps x 20) and the lookup once. Then the first DDIM plan
-   again on the card with both kernels routed to their plain versions (its
+   JAX's. Every plan must launch the guide loop 14 times (3 for DDIM: 3
+   guided substeps), no collision guide and the lookup once. Then the
+   first DDIM plan again on the card with every kernel routed to its plain
+   version (its
    generator state restored), which must agree within REPLAY_TOL
 13. datagen: `generate_context_trajectories` (native RRT required, 20
    trajectories, H=64, 300 GPMP2 iterations) for DATAGEN_CONTEXTS contexts
@@ -145,7 +164,8 @@ this file. Phases, one short line each:
    after one warm-up context. GPMP2 runs under torch's sync debug mode
    "error", so a host wait inside its loop fails the phase; each context
    must launch the lookup once per iteration and once more (the
-   classification), and the contexts must launch no collision guide. It prints each context's keep rate, wall seconds, its
+   classification), and the contexts must launch no collision guide and
+   no guide loop. It prints each context's keep rate, wall seconds, its
    host RRT and spline seconds and GPMP2's device time (CUDA events). The
    last context's GPMP2 runs again with the plain lookup, which must agree
    exactly (NaN where a factor failed, in both), and once more under the
@@ -162,9 +182,10 @@ this file. Phases, one short line each:
    trial must save results.pkl and results.txt; the aggregate must have
    the keys of the JAX package's (read from results/multitile-r5 as text);
    XECBS must succeed in at least EXPERIMENT_XECBS_MIN trials, and every
-   SUCCESS must audit at 0 contacts again. Over the phase the collision
-   guide must launch 280 x fresh + 80 x local plans and the lookup 3 x
-   plans, by the plans each trial saved, and 2 x 4 more a trial (the
+   SUCCESS must audit at 0 contacts again. Over the phase the guide loop
+   must launch 14 x fresh + 4 x local sampler calls, the collision guide
+   never and the lookup 3 x plans, by the plans each trial saved, and 2 x
+   4 more a trial (the
    team's check of its starts and of its goals on the grid's 4 tiles). PP's
    success rate and each trial's status are printed beside JAX's for the
    same problems (results/multitile-r5, read as text), not held, with each
@@ -177,15 +198,16 @@ this file. Phases, one short line each:
    bf16, one root repair round): a warm-up under torch's sync debug mode
    (every sync from `cbs.to_host`), the search, which must succeed with no
    conflict, plan its 20 fresh plans (the team root and the repair round)
-   in 2 sampler calls, and launch exactly 280 x fresh + 80 x local
-   collision guides and one lookup a sampler call, and its replay with both kernels routed to
-   their plain versions (generators restored), which must be exact;
+   in 2 sampler calls, and launch exactly 14 x fresh + 4 x local guide
+   loops, no collision guide and one lookup a sampler call, and its replay
+   with every kernel routed to its plain version (generators restored),
+   which must be exact;
    (b) one trial of JAX's dense grid (EnvConveyor2DRobotPlanarDiskRandom,
    DENSE_AGENTS agents, the vd checkpoint, float32, XECBS, frontier width
    2, DENSE_RUNTIME_LIMIT s; trial DENSE_TRIAL) through
    `run_multi_agent_trial`: it must succeed, audit at 0 contacts, run at
    least one frontier round of two nodes, and launch exactly what its
-   sampler-call counts say (280 / 80 guide calls a call, one lookup a call
+   sampler-call counts say (14 / 4 guide loops a call, one lookup a call
    and one for each of the team's two checks)
 16. baselines (after phase 15, before the report): `mmd_torch.tools.
    bench_kernels` once (the lookup against its plain version at 4096 and
@@ -194,29 +216,36 @@ this file. Phases, one short line each:
    defaults for BASELINE_PARTICLES copies of the straight line of
    BASELINE_TASK on EnvConveyor2D, (b) one full-width MPD plan on the
    EnvConveyor2D checkpoint with the guide's knobs of ZOO_GUIDE
-   (interpolated collision and three zoo terms), (c) the planar arm's
+   (interpolated collision and three zoo terms), (b') the same plan with
+   the three zoo terms alone, whose guide the guide-loop kernel does not
+   compute, so that it runs its iterations one `guide_gradient` at a time
+   with the collision-guide kernel, (c) the planar arm's
    `plan_arm_gpmp2` at its defaults (16 particles, H=64, 400 iterations) on
    EnvDropRegion2D from along +x to along +y. Each runs after a short
    warm-up under torch's sync debug mode "error" (a host wait inside it
    fails the phase), must launch the lookup exactly once an iteration (a
-   + 0, (b) once a guide call + 1 and no collision guide, (c) 400 + 1), and
-   must equal its replay with the lookup routed to its plain version, the
-   generator restored. It prints each run's seconds, launches and outcome
+   + 0, (b) once a guide call + 1 and no collision guide, (b') 1 and the
+   collision guide once a guide call, (c) 400 + 1) and no guide loop, and
+   must equal its replay with every kernel routed to its plain version,
+   the generator restored. It prints each run's seconds, launches and outcome
    (waypoints in collision and free particles before and after; the plan's
    free samples; the arm's free particles, at least one), and the lookup's
    device time, wrapper and plain ms and bound at each run's shape
 11. one JSON line of kernel numbers (launches: the sum over the paths,
-   each counted from 0 just before it and read just after; phase 16's
-   paths, this slice's, launch no collision guide; launches by path: the
+   each counted from 0 just before it and read just after; the sampler's
+   paths launch the guide loop and no collision guide, phase 16's
+   zoo-term plan the collision guide and no guide loop; launches by path:
+   the
    four plans of phase 5, the team plan of
    phase 7, the two searches of phase 8, phase 9's two plans, search and PP team,
    phase 10's, phases 12, 13 and 14's, phase 15's two and phase 16's six;
    ms, plain and bound: the collision
    guide at phase 9's stacked (3, 64, 64, 4), with phase 4's (64, 64, 4)
-   beside them; `launch_floor_us`: the device time of a 1-element `fill_`
+   beside them; the guide loop at phase 17's (64, 64, 4), its other shapes
+   and cases beside; `launch_floor_us`: the device time of a 1-element `fill_`
    from a profiler trace, the least a launch costs; the lookup's numbers at
-   both phase 3 shapes and at phase 16's, and bench_kernels' rows), then the
-   contract line
+   both phase 3 shapes and at phase 16's, and bench_kernels' rows), the
+   run's seconds against DEADLINE_S, then the contract line
    {"ok": true, "device": {...}}
 
 Any failure raises and exits non-zero; a self-imposed deadline of
@@ -256,6 +285,7 @@ COLLISION_TOL = 0.0
 # runs the same arithmetic, so it must agree exactly.
 REPLAY_TOL = 0.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, float32 outside the tensor cores
 FINALIZE_SHAPE = (64, 379)  # classification points: B=64 x (63 x 6 + 1)
 BATCHED_FINALIZE_SHAPE = (640, 379)  # a batched finalize of 10 problems' 64 each
 SUMMARY_SHAPE = (25, 379)   # the training summary's: 25 samples x (63 x 6 + 1)
@@ -265,6 +295,17 @@ LINEAR_SHAPE = (500, 379)   # the linear data's classification: 500 contexts
 # the 500 linear contexts' 1000 starts and goals.
 FILTER_POINTS = (1024, 2048)
 GUIDE_SHAPE = (64, 64, 4)   # one guide call: B=64 x H=64 waypoints
+GUIDE_STEPS = 20            # a guided step's guide iterations (DiffusionConfig)
+# The guide-loop kernel's float32 operations, counted from its source
+# (guide_loop.cu, collision_terms.cuh; a fused multiply-add through double
+# counts 2): a waypoint's unnormalize and hard conditions every iteration;
+# an inner waypoint's collision terms (70), GP prior (74) and step (6); a
+# ball (a constraint's point in range, a soft row's unmasked centre); a
+# term's clip, weight and sum (a constraint, the soft paths).
+LOOP_OPS = {"waypoint": 28, "inner": 150, "ball": 12, "term": 20}
+# The guide-loop cases timed: the main path's plan (1, 64, 64, 4), the ECBS
+# root's with R = 9 soft rows, 10 problems and 3 tiles.
+LOOP_TIMED = ("conveyor", "root", "local", "problems", "tiles")
 NOWAIT_PAIRS = (0, 3, 6)   # of the 10-agent circle (multi_agent_utils.py:82-90)
 CONVEYOR_TASK = ((-0.8, 0.0), (0.8, 0.0))  # straight through the centre box
 TEAM_AGENTS = 10  # the 10-robot circle of bench.py
@@ -406,6 +447,53 @@ def routed(module, name: str, fn):
         setattr(module, name, kept)
 
 
+def counts() -> dict:
+    """Every kernel's launches so far, by kernel."""
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.guide_loop import guide_loop_cuda
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+
+    return {"guide_loop": guide_loop_cuda.launches, "collision_guide": collision_guide.launches,
+            "grid_sdf_lookup": grid_lookup.launches}
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0: a counted path starts."""
+    from mmd_torch.ops.collision_guide import collision_guide
+    from mmd_torch.ops.guide_loop import guide_loop_cuda
+    from mmd_torch.ops.sdf_kernel import grid_lookup
+
+    guide_loop_cuda.launches = collision_guide.launches = grid_lookup.launches = 0
+
+
+def grown(before: dict) -> dict:
+    """The launches since `before` (a `counts()`), by kernel."""
+    return {k: v - before[k] for k, v in counts().items()}
+
+
+def want(guide_loop: int = 0, collision_guide: int = 0, grid_sdf_lookup: int = 0) -> dict:
+    return {"guide_loop": guide_loop, "collision_guide": collision_guide,
+            "grid_sdf_lookup": grid_sdf_lookup}
+
+
+def plain_lookup():
+    """Route the lookup kernel's wrapper to its plain version for the block."""
+    from mmd_torch.ops import sdf_kernel
+
+    return routed(sdf_kernel, "grid_lookup_cuda", sdf_kernel.grid_lookup_plain)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route every kernel's wrapper to its plain version for the block: the
+    lookup, the collision guide and the guide loop."""
+    from mmd_torch.costs import guide
+
+    with plain_lookup(), routed(guide, "collision_guide", guide.collision_guide_plain), \
+            routed(guide, "guide_loop_cuda", guide.guide_loop_plain):
+        yield
+
+
 def kernel_points(n: int, grid, seed: int):
     """n query points: uniform over [-1.2, 1.2]^2 (so some fall outside the
     grid), points exactly on cell edges, and the box corners and far points."""
@@ -483,15 +571,15 @@ def main() -> int:
     import numpy as np
 
     from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
-    from mmd_torch.costs import guide
     from mmd_torch.costs.guide import GuideConfig, collision_guide_plain
     from mmd_torch.envs.envs import make_env
     from mmd_torch.experiments.status import TrialSuccessStatus
     from mmd_torch.ops import collision_guide as cg
     from mmd_torch.ops import sdf_kernel
+    from mmd_torch.ops import guide_loop as gl
     from mmd_torch.ops.build import find_nvcc, load_kernels
     from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
+    from mmd_torch.ops.sdf_kernel import grid_lookup_cuda, grid_lookup_plain
     from mmd_torch.parallel.team import PrioritizedTeam, plan_prioritized_scan
     from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
     from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
@@ -510,8 +598,8 @@ def main() -> int:
     phase("build")
     t0 = time.perf_counter()
     load_kernels()
-    print(f"build: grid_sdf.cu and collision_guide.cu with {find_nvcc()} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"build: grid_sdf.cu, collision_guide.cu and guide_loop.cu with {find_nvcc()}, one "
+          f"nvcc each, all started together, in {time.perf_counter() - t0:.2f} s")
 
     phase("kernel")
     lookup_err = 0.0
@@ -531,10 +619,10 @@ def main() -> int:
             cases[case] = torch.from_numpy(kernel_points(
                 shape[0] * shape[1], scene.grid, shape[0])).to(dev).reshape(*shape, 2)
         for case, pts in cases.items():
-            want = grid_lookup_plain(pts, tables, scene.grid.lower, scene.grid.upper)
+            ref = grid_lookup_plain(pts, tables, scene.grid.lower, scene.grid.upper)
             got = grid_lookup_cuda(pts, tables, scene.grid.lower, scene.grid.upper)
             torch.cuda.synchronize()
-            for g, w in zip(got, want):
+            for g, w in zip(got, ref):
                 err = float((g - w).abs().max())
                 if not torch.equal(g, w):
                     raise RuntimeError(f"lookup kernel != plain on {env_name}, {case}: "
@@ -566,9 +654,6 @@ def main() -> int:
     phase("collision")
     # The plain version's lookup runs in plain torch too, so that the kernel
     # is held against plain torch only.
-    def plain_lookup():
-        return routed(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
-
     collision_err, n_cases = 0.0, 0
     for cutoff in (GuideConfig().obstacle_cutoff_margin, HINGE_CUTOFF):
         cfg = GuideConfig(obstacle_cutoff_margin=cutoff)
@@ -582,9 +667,9 @@ def main() -> int:
                                                len(name) + len(shape))).to(dev)
                 got = collision_guide(u, sc, cfg)
                 with plain_lookup():
-                    want = collision_guide_plain(u, sc, cfg)
+                    ref = collision_guide_plain(u, sc, cfg)
                 torch.cuda.synchronize()
-                err = float((got - want).abs().max())
+                err = float((got - ref).abs().max())
                 if not err <= COLLISION_TOL or got[..., 2:].any():
                     raise RuntimeError(f"collision kernel != plain on {name}, {shape}, "
                                        f"cutoff {cutoff}: max abs err {err}")
@@ -614,43 +699,44 @@ def main() -> int:
           f"plain {collision_plain_ms:.5f} ms, bound {collision_bound_ms:.6f} ms "
           f"({collision_bytes} B, {n_cells} cells)")
 
+    phase("guide loop")
+    loop = run_guide_loop_phase(dev)
+
     phase("slice")
     starts, goals = get_start_goal_pos_circle(10)
     pairs = list(zip(starts, goals))
     nowait = [load_planner("EnvEmptyNoWait2D", *pairs[k], dev) for k in NOWAIT_PAIRS]
     conveyor = load_planner("EnvConveyor2D", *CONVEYOR_TASK, dev)
     cfg = nowait[0].cfg
-    guide_calls = cfg.n_guided_steps() * cfg.n_guide_steps
+    guided_steps = cfg.n_guided_steps()
     t0 = time.perf_counter()
     nowait[0]()  # warm-up
     print(f"slice: warm-up plan {time.perf_counter() - t0:.3f} s; expecting "
-          f"{guide_calls} collision-guide launches a plan ({cfg.n_guided_steps()} "
-          f"guided steps x {cfg.n_guide_steps}) and 1 lookup (finalize)")
+          f"{guided_steps} guide-loop launches a plan (one a guided step, each "
+          f"{cfg.n_guide_steps} iterations), no collision guide and 1 lookup (finalize)")
     # Noise of the plans that phase 6 replays.
     replay = {0: nowait[0].draw_noise(), len(NOWAIT_PAIRS): conveyor.draw_noise()}
-    grid_lookup.launches = collision_guide.launches = 0  # main path starts
+    zero_counts()  # main path starts
     runs = [(f"EnvEmptyNoWait2D pair {k}", p) for k, p in zip(NOWAIT_PAIRS, nowait)]
     runs.append(("EnvConveyor2D", conveyor))
     outs, plan_s = [], []
     for n, (label, planner) in enumerate(runs):
-        before = (collision_guide.launches, grid_lookup.launches)
+        before = counts()
         out = planner(noise=replay.get(n))
-        grew = (collision_guide.launches - before[0], grid_lookup.launches - before[1])
+        grew = grown(before)
         outs.append(out)
         plan_s.append(out.t_total)
         print(f"slice: {label}: {out.t_total:.3f} s, success {out.success_free_trajs}, "
-              f"fraction_free {out.fraction_free_trajs:.3f}, launches collision "
-              f"+{grew[0]}, lookup +{grew[1]}")
-        if grew != (guide_calls, 1):
-            raise RuntimeError(f"{label}: collision guide launched {grew[0]} times and "
-                               f"the lookup {grew[1]}, expected {guide_calls} and 1")
+              f"fraction_free {out.fraction_free_trajs:.3f}, launches {grew}")
+        if grew != want(guided_steps, 0, 1):
+            raise RuntimeError(f"{label}: launched {grew}, expected "
+                               f"{want(guided_steps, 0, 1)}")
         if not torch.isfinite(out.trajs_final).all() or out.trajs_final.shape != (
                 cfg.n_samples, cfg.horizon, cfg.state_dim):
             raise RuntimeError(f"{label}: trajs_final not finite of the expected shape")
         if label.startswith("EnvEmptyNoWait2D") and out.success_free_trajs != 1:
             raise RuntimeError(f"{label}: no collision-free trajectory")
-    main_launches = {"grid_sdf_lookup": grid_lookup.launches,
-                     "collision_guide": collision_guide.launches}  # main path ends
+    main_launches = counts()  # main path ends
 
     phase("replay")
 
@@ -669,11 +755,11 @@ def main() -> int:
         raise RuntimeError(f"card and CPU plans differ by {diff} > {CPU_TOL}")
 
     n = len(NOWAIT_PAIRS)  # the EnvConveyor2D plan
-    # This replay only: both kernels give way to their plain versions.
-    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+    # This replay only: every kernel gives way to its plain version.
+    with plain_kernels():
         plain_out = conveyor(noise=replay[n])
     diff = max_diff(outs[n], plain_out)
-    print(f"replay: {runs[n][0]} on the card with both plain versions, "
+    print(f"replay: {runs[n][0]} on the card with every plain version, "
           f"max |trajs_final kernels - plain| {diff:.3e} (tolerance {REPLAY_TOL})")
     if not diff <= REPLAY_TOL:
         raise RuntimeError(f"the kernels' and the plain versions' plans differ by {diff}")
@@ -706,32 +792,30 @@ def main() -> int:
     if syncs:
         raise RuntimeError(f"the team loop synced the host {len(syncs)} times: {syncs[:3]}")
     team_noise = pp._team_noise()  # the draws of the plan the replay repeats
-    grid_lookup.launches = collision_guide.launches = 0  # team path starts
+    zero_counts()  # team path starts
     paths, _, status, n_conflicts = pp.plan(noise_l=team_noise)
-    team_launches = {"grid_sdf_lookup": grid_lookup.launches,
-                     "collision_guide": collision_guide.launches}  # team path ends
+    team_launches = counts()  # team path ends
     timing = dict(pp.timing)
     print(f"team: {TEAM_AGENTS}-robot PP in {timing['plan_s']:.3f} s ({timing['device_calls']} "
           f"host wait(s), {timing['device_s']:.3f} s), status {status}, conflicts "
-          f"{n_conflicts}, device pass {pp.used_scan}, launches collision "
-          f"{team_launches['collision_guide']}, lookup {team_launches['grid_sdf_lookup']}")
+          f"{n_conflicts}, device pass {pp.used_scan}, launches {team_launches}")
     print("team: agent seconds " + " ".join(f"{a:.4f}" for a in timing.get("agent_s", [])))
     if not pp.used_scan:
         raise RuntimeError("the team plan did not take the device pass")
     if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
             or count_conflicts(paths, pp.margin) != 0):
         raise RuntimeError(f"team plan: status {status}, {n_conflicts} conflicts")
-    want = (TEAM_AGENTS * guide_calls, TEAM_AGENTS)
-    if (team_launches["collision_guide"], team_launches["grid_sdf_lookup"]) != want:
-        raise RuntimeError(f"team plan launched {team_launches}, expected {want}")
+    if team_launches != want(TEAM_AGENTS * guided_steps, 0, TEAM_AGENTS):
+        raise RuntimeError(f"team plan launched {team_launches}, expected "
+                           f"{want(TEAM_AGENTS * guided_steps, 0, TEAM_AGENTS)}")
     if len(paths) != TEAM_AGENTS or not all(
             p.shape == (cfg.horizon, cfg.state_dim) and np.isfinite(p).all() for p in paths):
         raise RuntimeError("team paths not finite of the expected shape")
     kept = pp.final
-    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+    with plain_kernels():
         pp.plan(noise_l=team_noise)
     diff = float((kept.paths_all - pp.final.paths_all).abs().max())
-    print(f"replay: team plan on the card with both plain versions in "
+    print(f"replay: team plan on the card with every plain version in "
           f"{pp.timing['plan_s']:.3f} s, indices equal {kept.ix_best == pp.final.ix_best}, "
           f"max |trajs_final kernels - plain| {diff:.3e} (tolerance {REPLAY_TOL})")
     if kept.ix_best != pp.final.ix_best or not diff <= REPLAY_TOL:
@@ -739,28 +823,28 @@ def main() -> int:
     batched = batched_against_looped(team, team_noise)
 
     phase("cbs")
-    cbs = run_cbs_phase(dev, cfg, plain_lookup)
+    cbs = run_cbs_phase(dev, cfg)
 
     phase("tiles")
-    tiles = run_tiles_phase(dev, plain_lookup)
+    tiles = run_tiles_phase(dev)
 
     phase("train")
-    trained = run_train_phase(dev, guide_calls)
+    trained = run_train_phase(dev, guided_steps)
 
     phase("eval")
-    evaluated = run_eval_phase(dev, guide_calls, plain_lookup)
+    evaluated = run_eval_phase(dev)
 
     phase("datagen")
-    generated = run_datagen_phase(dev, plain_lookup)
+    generated = run_datagen_phase(dev)
 
     phase("experiments")
     experiments = run_experiments_phase(dev)
 
     phase("speculative")
-    speculative = run_speculative_phase(dev, cfg, plain_lookup)
+    speculative = run_speculative_phase(dev, cfg)
 
     phase("baselines")
-    baselines = run_baselines_phase(dev, plain_lookup)
+    baselines = run_baselines_phase(dev)
 
     phase("report")
     floor_us = launch_floor_us()
@@ -777,7 +861,10 @@ def main() -> int:
         by_path.update({k: v[name] for k, v in speculative["launches"].items()})
         by_path.update({k: v[name] for k, v in baselines["launches"].items()})
         # Every path of the run, each counted from 0 just before it and read
-        # just after: phase 16, this slice's, bypasses the collision guide.
+        # just after: the sampler's guide loops launch the guide-loop kernel;
+        # phase 16's zoo-term plan, the one path whose guide runs its
+        # iterations one at a time with the collision kernel, launches the
+        # collision guide.
         return {"launches": sum(by_path.values()), "launches_by_path": by_path,
                 "launch_floor_us": floor_us}
 
@@ -800,6 +887,13 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None, "shape": list(stacked["shape"]),
         "single_scene": {"shape": list(GUIDE_SHAPE), "ms": collision_ms,
                          "plain_ms": collision_plain_ms, "bound_ms": collision_bound_ms},
+    }, {
+        "name": "guide_loop", "route": "cuda", "source": "mmd_torch/csrc/guide_loop.cu",
+        "replaces": gl.REPLACES, **launches("guide_loop"), "max_abs_err": loop["max_abs_err"],
+        "ms": loop["ms"], "plain_ms": loop["plain_ms"], "bound_ms": loop["bound_ms"],
+        "bound_by": loop["bound_by"], "library_ms": None, "shape": loop["shape"],
+        "device_us": loop["device_us"], "per_iteration_ms": loop["per_iteration_ms"],
+        "cases": loop["cases"], "timed": loop["timed"],
     }]
     print(json.dumps({"kernels": kernels, "plan_s": plan_s,
                       "team": {"agents": TEAM_AGENTS, "plan_s": timing["plan_s"],
@@ -810,7 +904,10 @@ def main() -> int:
                       "datagen": generated["summary"], "experiments": experiments["summary"],
                       "speculative": speculative["summary"],
                       "baselines": baselines["summary"],
-                      "total_s": round(time.perf_counter() - t_start, 3)}))
+                      "total_s": round(time.perf_counter() - t_start, 3),
+                      "deadline_s": DEADLINE_S}))
+    print(f"report: the whole run took {time.perf_counter() - t_start:.1f} s of its "
+          f"{DEADLINE_S} s deadline")
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -832,17 +929,13 @@ def _sync_origins(caught):
     return ours, [f"{w.filename}:{w.lineno}" for w in syncs if w not in ours]
 
 
-def run_cbs_phase(dev, cfg, plain_lookup):
+def run_cbs_phase(dev, cfg):
     """Phase 8 (module docstring): the XECBS search of bench.py's main path."""
     import numpy as np
     import torch
 
     from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
-    from mmd_torch.costs import guide
-    from mmd_torch.costs.guide import collision_guide_plain
     from mmd_torch.experiments.status import TrialSuccessStatus
-    from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.sdf_kernel import grid_lookup
     from mmd_torch.planners.multi_agent.cbs import CBS
     from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
     from mmd_torch.planners.single_agent.mpd import load_planners
@@ -898,33 +991,34 @@ def run_cbs_phase(dev, cfg, plain_lookup):
 
     def check_search(name, team, out, launches):
         """The search's result and its launches against its own counts of
-        its sampler calls: 280 collision guides a fresh call and 80 a local
-        one, whatever its number of problems, and one lookup a call."""
+        its sampler calls: 14 guide loops a fresh call and 4 a local one,
+        whatever its number of problems, no collision guide, and one lookup
+        a call."""
         paths, n_exp, status, n_conflicts = out
         fresh, local = calls_of(team.timing)
         if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
                 or count_conflicts(paths, team.margin) != 0):
             raise RuntimeError(f"{name} search: status {status}, {n_conflicts} conflicts")
-        want = (per_fresh * fresh + per_local * local, fresh + local)
-        if (launches["collision_guide"], launches["grid_sdf_lookup"]) != want:
-            raise RuntimeError(f"{name} search launched {launches}, expected {want} "
+        expected = want(per_fresh * fresh + per_local * local, 0, fresh + local)
+        if launches != expected:
+            raise RuntimeError(f"{name} search launched {launches}, expected {expected} "
                                f"({fresh} fresh sampler calls, {local} local ones)")
         if len(paths) != TEAM_AGENTS or not all(
                 p.shape == (cfg.horizon, cfg.state_dim) and np.isfinite(p).all() for p in paths):
             raise RuntimeError(f"{name} paths not finite of the expected shape")
 
     def check_replay(name, team, n_exp, states, host_driven=False):
-        """The same search on the card with both kernels routed to their
-        plain versions, the generators restored: exact."""
+        """The same search on the card with every kernel routed to its plain
+        version, the generators restored: exact."""
         for p, state in zip(planners, states):
             p._generator.set_state(state)
         replay = search(host_driven)
-        with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+        with plain_kernels():
             _, replay_exp, _, _ = replay.plan(runtime_limit=600)
         kept = team.final
         diff = float((kept.paths_all - replay.final.paths_all).abs().max())
         same = replay_exp == n_exp and kept.ix_best == replay.final.ix_best
-        print(f"replay: {name} search on the card with both plain versions in "
+        print(f"replay: {name} search on the card with every plain version in "
               f"{replay.timing['plan_s']:.3f} s, {replay_exp} expansions, indices equal "
               f"{kept.ix_best == replay.final.ix_best}, max |trajs_final kernels - plain| "
               f"{diff:.3e} (tolerance {REPLAY_TOL})")
@@ -936,8 +1030,7 @@ def run_cbs_phase(dev, cfg, plain_lookup):
         return {k[len("device_"):-2]: v for k, v in timing.items()
                 if k.startswith("device_") and k.endswith("_s") and k != "device_s"}
 
-    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
-    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
+    per_fresh, per_local = cfg.n_guided_steps(), cfg.n_guided_steps(3)
     first_states = [p._generator.get_state() for p in planners]
     warm = search()
     t0 = time.perf_counter()
@@ -953,10 +1046,9 @@ def run_cbs_phase(dev, cfg, plain_lookup):
     if not xecbs._root_greedy_eligible():
         raise RuntimeError("the XECBS search does not take the fused root and greedy chain")
     xecbs.greedy_audit = []
-    grid_lookup.launches = collision_guide.launches = 0  # xecbs path starts
+    zero_counts()  # xecbs path starts
     out = xecbs.plan(runtime_limit=600)
-    launches = {"grid_sdf_lookup": grid_lookup.launches,
-                "collision_guide": collision_guide.launches}  # xecbs path ends
+    launches = counts()  # xecbs path ends
     _, n_exp, status, n_conflicts = out
     timing = dict(xecbs.timing)
     fresh, local = timing["plans_fresh"], timing["plans_local"]
@@ -966,10 +1058,9 @@ def run_cbs_phase(dev, cfg, plain_lookup):
           f"{n_conflicts} conflicts, {n_exp} expansions; host waits {timing['device_calls']} "
           f"({timing['device_s']:.3f} s) by phase {waits}; plans fresh {fresh}, local {local}; "
           f"sampler calls fresh {calls_fresh}, local {calls_local}; "
-          f"UNet forwards {timing['unet_forwards']}; launches collision "
-          f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']}")
+          f"UNet forwards {timing['unet_forwards']}; launches {launches}")
     # Every local call of the root + chain search is a chain step's two
-    # children: 80 collision guides for both, not 160.
+    # children: 4 guide loops for both, not 8.
     if local != 2 * calls_local or calls_local < 1:
         raise RuntimeError(f"XECBS: {local} local plans in {calls_local} sampler calls, "
                            f"not one call a chain step")
@@ -988,10 +1079,9 @@ def run_cbs_phase(dev, cfg, plain_lookup):
     host = search(host_driven=True)
     if host._root_greedy_eligible():
         raise RuntimeError("the host-driven XECBS search takes the greedy chain")
-    grid_lookup.launches = collision_guide.launches = 0  # xecbs_host path starts
+    zero_counts()  # xecbs_host path starts
     host_out, host_ours, host_others = under_sync_debug(host)
-    host_launches = {"grid_sdf_lookup": grid_lookup.launches,
-                     "collision_guide": collision_guide.launches}  # xecbs_host path ends
+    host_launches = counts()  # xecbs_host path ends
     host_root_reads = check_syncs("host-driven XECBS", host, host_others)
     _, host_exp, host_status, host_conflicts = host_out
     ht = dict(host.timing)
@@ -1008,8 +1098,7 @@ def run_cbs_phase(dev, cfg, plain_lookup):
           f"{len(host_others)} elsewhere; host waits {ht['device_calls']} by phase "
           f"{waits_of(ht)}; plans fresh {ht['plans_fresh']}, local {ht['plans_local']}; "
           f"sampler calls fresh {host_calls[0]}, local {host_calls[1]}; "
-          f"launches collision {host_launches['collision_guide']}, lookup "
-          f"{host_launches['grid_sdf_lookup']}")
+          f"launches {host_launches}")
     if expand_reads == 0 or ht.get("device_greedy_calls", 0) or host_exp == 0:
         raise RuntimeError(f"the host-driven search made {host_exp} expansions with "
                            f"{expand_reads} children/expand reads and "
@@ -1033,8 +1122,8 @@ def run_cbs_phase(dev, cfg, plain_lookup):
 
 def batched_against_looped(team, noise_l) -> dict:
     """The team's agents as one fresh sampler call (`plan_problems`, the
-    CBS/XCBS root's): it must launch the collision guide once a guide call
-    and the lookup once for all agents. Then that call's chain with the
+    CBS/XCBS root's): it must launch the guide loop once a guided step, no
+    collision guide and the lookup once for all agents. Then that call's chain with the
     UNet run B rows at a time (`RowChunked`): every DDPM step against each
     agent's single step fed the same x, on the card, within CPU_TOL. cuDNN
     chooses its convolution algorithm by batch size, so a row need not be
@@ -1046,25 +1135,21 @@ def batched_against_looped(team, noise_l) -> dict:
     from mmd_torch.costs.guide import GuideData
     from mmd_torch.models import diffusion
     from mmd_torch.models.diffusion import HardConds, SamplerNoise
-    from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.sdf_kernel import grid_lookup
     from mmd_torch.tools.row_chunked import RowChunked
 
     p0, A = team.p0, len(noise_l)
     cfg = p0.cfg
-    before = (collision_guide.launches, grid_lookup.launches)
+    before = counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = team.plan_problems(noise_l)
     free = res.free_mask.any(dim=-1).cpu()
     batch_s = time.perf_counter() - t0
-    grew = (collision_guide.launches - before[0], grid_lookup.launches - before[1])
-    want = (cfg.n_guided_steps() * cfg.n_guide_steps, 1)
+    grew, expected = grown(before), want(cfg.n_guided_steps(), 0, 1)
     print(f"team: the {A} agents as one batched fresh call in {batch_s:.3f} s, every agent "
-          f"free {bool(free.all())}, launches collision +{grew[0]}, lookup +{grew[1]} "
-          f"(expected {want})")
-    if grew != want or res.trajs_final.shape[0] != A:
-        raise RuntimeError(f"the batched call launched {grew}, expected {want}")
+          f"free {bool(free.all())}, launches {grew} (expected {expected})")
+    if grew != expected or res.trajs_final.shape[0] != A:
+        raise RuntimeError(f"the batched call launched {grew}, expected {expected}")
     hard = HardConds(mask=team.hard_team.mask, values=team.hard_team.values[:, None])
     gd = GuideData(scene=p0.scene, normalizer=p0.dataset.normalizer,
                    constraints=team.base_cset)
@@ -1089,7 +1174,7 @@ def batched_against_looped(team, noise_l) -> dict:
           f"{[f'{e:.2e}' for e in rows_errs]}")
     if not max(errs) <= CPU_TOL:
         raise RuntimeError(f"a batched step differs from the looped one: {errs}")
-    return {"agents": A, "batch_s": batch_s, "launches": list(grew), "step_errs": errs,
+    return {"agents": A, "batch_s": batch_s, "launches": grew, "step_errs": errs,
             "step_errs_unchunked": rows_errs}
 
 
@@ -1121,7 +1206,7 @@ def load_tiles_trial(planner_class: str, device: str):
                                    stagger_dt=STAGGER_DT)
 
 
-def stacked_kernel_check(dev, plain_lookup) -> dict:
+def stacked_kernel_check(dev) -> dict:
     """Phase 9's kernel part: the collision guide on three stacked scenes
     against its plain version, its T = 1 case against the single-scene
     call, and its time and byte bound at (3, 64, 64, 4)."""
@@ -1143,10 +1228,10 @@ def stacked_kernel_check(dev, plain_lookup) -> dict:
                                        for m, sc in enumerate(scenes)])).to(dev)
         got = collision_guide(u, stack, cfg)
         with plain_lookup():
-            want = collision_guide_plain(u, stack, cfg)
+            ref = collision_guide_plain(u, stack, cfg)
         one = collision_guide(u[:1].contiguous(), SceneStack((scenes[0],)), cfg)
         torch.cuda.synchronize()
-        e = float((got - want).abs().max())
+        e = float((got - ref).abs().max())
         if not e <= COLLISION_TOL or got[..., 2:].any() or not torch.equal(
                 one[0], collision_guide(u[0].contiguous(), scenes[0], cfg)):
             raise RuntimeError(f"stacked collision kernel != plain at cutoff {cutoff}: {e}")
@@ -1171,30 +1256,22 @@ def stacked_kernel_check(dev, plain_lookup) -> dict:
             "bound_ms": bound_ms}
 
 
-def run_tiles_phase(dev, plain_lookup):
+def run_tiles_phase(dev):
     """Phase 9 (module docstring): multi-tile planning on the 2x2 instance."""
     import numpy as np
     import torch
 
     from mmd_torch.common.experiences import PathBatchExperience
-    from mmd_torch.costs import guide
-    from mmd_torch.costs.guide import collision_guide_plain
     from mmd_torch.experiments.status import TrialSuccessStatus
     from mmd_torch.experiments.trial import make_team_planner
     from mmd_torch.models.ensemble import seam_residual
-    from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.sdf_kernel import grid_lookup
     from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
 
-    kernel = stacked_kernel_check(dev, plain_lookup)
+    kernel = stacked_kernel_check(dev)
     trial = load_tiles_trial("XECBS", dev)
     p0 = trial.planners[0]
     cfg, n_tiles = p0.cfg, p0.n_tiles
-    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
-    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
-
-    def counts():
-        return collision_guide.launches, grid_lookup.launches
+    per_fresh, per_local = cfg.n_guided_steps(), cfg.n_guided_steps(3)
 
     # Agent 0's skeleton, fresh and then locally from its own batch.
     t0 = time.perf_counter()
@@ -1203,24 +1280,23 @@ def run_tiles_phase(dev, plain_lookup):
           f"{time.perf_counter() - t0:.3f} s")
     launches, plans, kept = {}, {}, None
     for kind in ("fresh", "local"):
-        grid_lookup.launches = collision_guide.launches = 0  # plan path starts
+        zero_counts()  # plan path starts
         out = p0(experience=PathBatchExperience(kept) if kind == "local" else None)
         grew = counts()  # plan path ends
         seam = float(seam_residual(p0.local_seeds(out.trajs_iters[-1]), p0.cc))
-        want = (per_fresh if kind == "fresh" else per_local, n_tiles)
+        expected = want(per_fresh if kind == "fresh" else per_local, 0, n_tiles)
         print(f"tiles: {kind} plan of agent 0 in {out.t_total:.3f} s, success "
               f"{out.success_free_trajs}, fraction_free {out.fraction_free_trajs:.3f}, seam "
-              f"residual {seam:.3e} (tolerance {SEAM_TOL}), launches collision +{grew[0]}, "
-              f"lookup +{grew[1]}")
-        if grew != want:
-            raise RuntimeError(f"{kind} ensemble plan launched {grew}, expected {want}")
+              f"residual {seam:.3e} (tolerance {SEAM_TOL}), launches {grew}")
+        if grew != expected:
+            raise RuntimeError(f"{kind} ensemble plan launched {grew}, expected {expected}")
         if out.success_free_trajs != 1 or not seam <= SEAM_TOL:
             raise RuntimeError(f"{kind} ensemble plan: success {out.success_free_trajs}, "
                                f"seam residual {seam}")
         if not torch.isfinite(out.trajs_final).all() or out.trajs_final.shape != (
                 cfg.n_samples, n_tiles * cfg.horizon, cfg.state_dim):
             raise RuntimeError(f"{kind} ensemble plan not finite of the expected shape")
-        launches[f"tiles_{kind}"] = dict(zip(("collision_guide", "grid_sdf_lookup"), grew))
+        launches[f"tiles_{kind}"] = grew
         plans[kind] = out.t_total
         kept = out.trajs_final
 
@@ -1248,29 +1324,27 @@ def run_tiles_phase(dev, plain_lookup):
         return len(ours)
 
     def measured(team, name):
-        grid_lookup.launches = collision_guide.launches = 0  # path starts
+        zero_counts()  # path starts
         paths, n_exp, status, n_conflicts = team.plan(runtime_limit=600)
         grew = counts()  # path ends
         t = dict(team.timing)
         fresh, local = t["plans_fresh"], t["plans_local"]
-        want = (per_fresh * fresh + per_local * local, n_tiles * (fresh + local))
+        expected = want(per_fresh * fresh + per_local * local, 0, n_tiles * (fresh + local))
         waits = {k[len("device_"):-2]: v for k, v in t.items()
                  if k.startswith("device_") and k.endswith("_s") and k != "device_s"}
         print(f"tiles: {TILES_AGENTS}-agent {name} on {TILES_INSTANCE} (seed 0, stagger "
               f"{STAGGER_DT}, f32) in {t['plan_s']:.3f} s, {status}, {n_conflicts} conflicts, "
               f"{n_exp} expansions; host waits {t['device_calls']} ({t['device_s']:.4f} s) "
-              f"by phase {waits}; plans fresh {fresh}, local {local}; launches collision "
-              f"{grew[0]}, lookup {grew[1]}")
-        if grew != want:
-            raise RuntimeError(f"{name} launched {grew}, expected {want} ({fresh} fresh, "
+              f"by phase {waits}; plans fresh {fresh}, local {local}; launches {grew}")
+        if grew != expected:
+            raise RuntimeError(f"{name} launched {grew}, expected {expected} ({fresh} fresh, "
                                f"{local} local plans of {n_tiles} tiles)")
         L = n_tiles * cfg.horizon + max(trial.start_time_l)
         if not all(p.shape == (L, cfg.state_dim) and np.isfinite(p).all() for p in paths):
             raise RuntimeError(f"{name} paths not finite of the expected shape")
         if count_conflicts(paths, team.margin) != n_conflicts:
             raise RuntimeError(f"{name}: its paths' conflicts differ from its count")
-        launches[f"tiles_{name.lower()}"] = dict(zip(("collision_guide", "grid_sdf_lookup"),
-                                                     grew))
+        launches[f"tiles_{name.lower()}"] = grew
         return {"plan_s": t["plan_s"], "status": str(status), "conflicts": n_conflicts,
                 "expansions": n_exp, "plans_fresh": fresh, "plans_local": local,
                 "device_s": t["device_s"], "device_calls": t["device_calls"], "waits_s": waits}
@@ -1286,12 +1360,12 @@ def run_tiles_phase(dev, plain_lookup):
     for p, state in zip(trial.planners, kept_states):
         p._generator.set_state(state)
     replay = search("XECBS")
-    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+    with plain_kernels():
         _, replay_exp, _, _ = replay.plan(runtime_limit=600)
     diff = float((xecbs.final.paths_all - replay.final.paths_all).abs().max())
     same = (replay_exp == summary["xecbs"]["expansions"]
             and xecbs.final.ix_best == replay.final.ix_best)
-    print(f"replay: multi-tile XECBS on the card with both plain versions in "
+    print(f"replay: multi-tile XECBS on the card with every plain version in "
           f"{replay.timing['plan_s']:.3f} s, {replay_exp} expansions, indices equal "
           f"{xecbs.final.ix_best == replay.final.ix_best}, max |trajs_final kernels - plain| "
           f"{diff:.3e} (tolerance {REPLAY_TOL})")
@@ -1302,6 +1376,139 @@ def run_tiles_phase(dev, plain_lookup):
     summary["pp"] = measured(search("PP"), "PP")
     print(f"tiles: PP status {summary['pp']['status']} (reported, not held)")
     return {"kernel": kernel, "launches": launches, "summary": summary}
+
+
+def loop_work(x, gd, hard, cfg, n_steps: int) -> dict:
+    """The guide loop's least bytes and operations on these inputs, and the
+    bound they give: x read and written once, the hard mask and values, the
+    normalizer, the staged constraint set and soft paths read once, and
+    24 B for each distinct cell that the n_steps iterations' inner
+    waypoints read (their positions from the plain version, one iteration
+    at a time); the operations of LOOP_OPS, counting the balls in range
+    and unmasked."""
+    import torch
+
+    from mmd_torch.costs.guide import guide_loop_plain
+    from mmd_torch.envs.envs import SceneStack
+    from mmd_torch.ops import sdf_kernel
+
+    scenes = gd.scene.scenes if isinstance(gd.scene, SceneStack) else None
+    grid = (scenes[0] if scenes else gd.scene).grid
+    n0, n1 = grid.shape
+    H = x.shape[-2]
+    xg = x if x.dim() == 4 else x[None]
+    G, B = xg.shape[:2]
+    keys, xs = [], x
+    with plain_kernels():
+        for _ in range(n_steps):
+            q = gd.normalizer.unnormalize(xs)
+            q = (q if q.dim() == 4 else q[None])[..., 1:-1, :2]
+            i, j = sdf_kernel.cell_index(q, grid.shape, grid.lower, grid.upper)
+            tile = torch.arange(G, device=x.device)[:, None, None] if scenes else 0
+            keys.append(((tile * n0 + i) * n1 + j).flatten())
+            xs = guide_loop_plain(xs, gd, hard, cfg, 1)
+    n_cells = int(torch.unique(torch.cat(keys)).numel())
+
+    cs, spc = gd.constraints, gd.soft_paths
+    staged = [cs.q, cs.t_range, cs.radius, cs.point_mask, cs.weight, cs.active] \
+        if cs.n_active else []
+    staged += [spc.points, spc.mask, spc.radius, spc.weight] if spc is not None else []
+    n_bytes = 4 * (2 * x.numel() + hard.mask.numel() + hard.values.numel()
+                   + gd.normalizer.mins.numel() + gd.normalizer.maxs.numel()
+                   + sum(t.numel() for t in staged)) + 24 * n_cells
+    inner = G * B * (H - 2)
+    balls = terms = 0
+    if cs.n_active:
+        h = torch.arange(H, dtype=torch.float32, device=x.device)
+        live = ((h >= cs.t_range[..., 0:1]) & (h < cs.t_range[..., 1:2])).float() \
+            * cs.point_mask[..., None] * cs.active[..., None, None]       # (.., K, P, H)
+        per_h = live.sum(dim=(-3, -2))[..., 1:-1]
+        balls += float(per_h.sum()) * B * (G if per_h.dim() == 1 else 1)
+        terms += inner * cs.max_constraints
+    if spc is not None:
+        per_h = (spc.mask != 0).float().sum(dim=-2)[..., 1:-1]
+        balls += float(per_h.sum()) * B * (G if per_h.dim() == 1 else 1)
+        terms += inner
+    ops = n_steps * (LOOP_OPS["waypoint"] * G * B * H + LOOP_OPS["inner"] * inner
+                     + LOOP_OPS["ball"] * balls + LOOP_OPS["term"] * terms)
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bytes": n_bytes, "cells": n_cells, "operations": int(ops),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def run_guide_loop_phase(dev) -> dict:
+    """Phase 17 (module docstring): the guide-loop kernel against its plain
+    version, timed, with its bound."""
+    import torch
+
+    from mmd_torch.costs.guide import guide_iterations, guide_loop_plain
+    from mmd_torch.ops.guide_loop import guide_loop_cuda
+    from mmd_torch.tools.guide_cases import LOOP_CASES, loop_case
+    from mmd_torch.tools.profile_plan import _traced
+
+    t_phase = time.perf_counter()
+    err, cases = 0.0, {}
+    for name in LOOP_CASES:
+        x, gd, hard, cfg = loop_case(name, dev, B=GUIDE_SHAPE[0])
+        before = counts()
+        got = guide_loop_cuda(x, gd, hard, cfg, GUIDE_STEPS)
+        launched = grown(before)
+        with plain_kernels():
+            expected = guide_loop_plain(x, gd, hard, cfg, GUIDE_STEPS)
+        torch.cuda.synchronize()
+        e, moved = float((got - expected).abs().max()), float((got - x).abs().max())
+        if (launched != want(1) or not torch.equal(got, expected)
+                or not torch.isfinite(got).all() or not moved > 1e-3):
+            raise RuntimeError(f"guide loop {name} {tuple(x.shape)}: launched {launched}, max "
+                               f"|kernel - plain| {e}, moved {moved}")
+        cs, spc = gd.constraints, gd.soft_paths
+        cases[name] = {"shape": list(x.shape),
+                       "K_P": list(cs.q.shape[-3:-1]) if cs.n_active else [0, 0],
+                       "R": spc.rows if spc is not None else 0, "moved": moved}
+        err = max(err, e)
+    print(f"guide loop: kernel against plain ({GUIDE_STEPS} iterations, one launch a call) in "
+          f"{len(cases)} cases, exactly equal: " + ", ".join(
+              f"{n} {tuple(c['shape'])} K,P {tuple(c['K_P'])} R {c['R']}"
+              for n, c in cases.items()))
+
+    timed = {}
+    for name in LOOP_TIMED:
+        x, gd, hard, cfg = loop_case(name, dev, B=GUIDE_SHAPE[0])
+
+        def run():
+            return guide_loop_cuda(x, gd, hard, cfg, GUIDE_STEPS)
+
+        run()
+        hits = []
+        for _ in range(3):  # a trace may show none of its kernels (seen once on the H100)
+            _, events = _traced(lambda: [run() for _ in range(50)], host=False)
+            hits = [ev.time_range.elapsed_us() for ev in events
+                    if "guide_loop_kernel" in ev.name]
+            if hits:
+                break
+        t = {"shape": list(x.shape), "device_us": sum(hits) / len(hits) if hits else None,
+             "ms": cuda_ms(run, n_iter=100)}
+        if name == LOOP_TIMED[0]:  # the main path's shape: the slower paths too
+            with plain_kernels():
+                t["plain_ms"] = cuda_ms(lambda: guide_loop_plain(x, gd, hard, cfg, GUIDE_STEPS),
+                                        n_iter=5, n_warm=1)
+            t["per_iteration_ms"] = cuda_ms(
+                lambda: guide_iterations(x, gd, hard, cfg, GUIDE_STEPS), n_iter=5, n_warm=1)
+        t.update(loop_work(x, gd, hard, cfg, GUIDE_STEPS))
+        timed[name] = t
+        print(f"guide loop: {name} {tuple(x.shape)}: device {t['device_us']} us a launch; "
+              f"wrapper {t['ms']:.5f} ms"
+              + (f", plain {t['plain_ms']:.5f} ms, per-iteration loop (20 guide_gradient + "
+                 f"hard.apply) {t['per_iteration_ms']:.5f} ms" if "plain_ms" in t else "")
+              + f"; bound {t['bound_ms']:.6f} ms by {t['bound_by']} ({t['bytes']} B, "
+              f"{t['cells']} cells, {t['operations']} operations)")
+    main = timed[LOOP_TIMED[0]]
+    print(f"guide loop: phase {time.perf_counter() - t_phase:.2f} s")
+    return {"max_abs_err": err, "cases": cases, "timed": timed, "shape": main["shape"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "per_iteration_ms": main["per_iteration_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "device_us": main["device_us"]}
 
 
 def launch_floor_us(n: int = 200) -> float:
@@ -1425,7 +1632,7 @@ class GuardedChunks:
         return out
 
 
-def run_train_phase(dev, guide_calls):
+def run_train_phase(dev, guided_steps):
     """Phase 10 (module docstring): training on the card."""
     import math
 
@@ -1435,7 +1642,6 @@ def run_train_phase(dev, guide_calls):
     from mmd_torch.datasets.trajectories import TrajectoryDataset, model_id
     from mmd_torch.models.schedules import make_schedule
     from mmd_torch.models.temporal_unet import Bf16Forward
-    from mmd_torch.ops.collision_guide import collision_guide
     from mmd_torch.ops import sdf_kernel
     from mmd_torch.ops.sdf_kernel import grid_lookup
     from mmd_torch.planners.single_agent.mpd import load_planner as load
@@ -1520,7 +1726,7 @@ def run_train_phase(dev, guide_calls):
         seen.append((points.clone(), *args))
         return kernel(points, *args)
 
-    grid_lookup.launches = collision_guide.launches = 0  # train path starts
+    zero_counts()  # train path starts
     with routed(sdf_kernel, "grid_lookup_cuda", recorded):
         stats = summary_trajectory_generation(f32_state.ema, f32_schedule, ds,
                                               torch.Generator(device=dev).manual_seed(0),
@@ -1535,13 +1741,11 @@ def run_train_phase(dev, guide_calls):
     planner = load(TRAIN_MODELS, os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
                    starts[NOWAIT_PAIRS[0]], goals[NOWAIT_PAIRS[0]], dev)
     out = planner()
-    launches = {"grid_sdf_lookup": grid_lookup.launches,
-                "collision_guide": collision_guide.launches}  # train path ends
+    launches = counts()  # train path ends
     print(f"train: summary on the EMA parameters {stats} ({summary_lookups} lookups); "
           f"checkpoint of step {info['step']} reloaded, EMA weights equal {same}; MPD plan with "
           f"it in {out.t_total:.3f} s, success {out.success_free_trajs}, fraction_free "
-          f"{out.fraction_free_trajs:.3f} (not held), launches collision "
-          f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']}")
+          f"{out.fraction_free_trajs:.3f} (not held), launches {launches}")
     lookup_err = 0.0
     for points, *args in seen:
         for g, w in zip(kernel(points, *args), sdf_kernel.grid_lookup_plain(points, *args)):
@@ -1554,9 +1758,9 @@ def run_train_phase(dev, guide_calls):
     if summary_lookups != 3 or not same or info["step"] != TRAIN_STEPS:
         raise RuntimeError(f"summary lookups {summary_lookups}, weights equal {same}, "
                            f"step {info['step']}")
-    if (launches["collision_guide"], launches["grid_sdf_lookup"]) != (guide_calls, 4):
+    if launches != want(guided_steps, 0, 4):
         raise RuntimeError(f"the trained model's plan launched {launches}, expected "
-                           f"{guide_calls} and 1 (+3 from the summary)")
+                           f"{guided_steps} guide loops and 1 lookup (+3 from the summary)")
     if not torch.isfinite(out.trajs_final).all() or out.trajs_final.shape != (64, 64, 4):
         raise RuntimeError("the trained model's plan is not finite of the expected shape")
     summary = dict(runs)
@@ -1566,33 +1770,27 @@ def run_train_phase(dev, guide_calls):
     return {"launches": launches, "lookup_err": lookup_err, "summary": summary}
 
 
-def run_eval_phase(dev, guide_calls, plain_lookup, n_tasks: int = EVAL_TASKS,
-                   maps=EVAL_MAPS):
+def run_eval_phase(dev, n_tasks: int = EVAL_TASKS, maps=EVAL_MAPS):
     """Phase 12 (module docstring): `mmd_torch.tools.eval_model`'s rates on
     the card."""
     import torch
 
-    from mmd_torch.costs import guide
-    from mmd_torch.costs.guide import collision_guide_plain
     from mmd_torch.experiments.trial import ModelRegistry
     from mmd_torch.io.flat_yaml import load_rows
-    from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.sdf_kernel import grid_lookup
     from mmd_torch.tools.eval_model import evaluate
 
     jax_rows = {r["model"]: r for r in load_rows(os.path.join(ROOT, "MODEL_EVAL.yaml"))
                 if "variant" not in r}
     registry = ModelRegistry(device=dev)
-    counts, kept = [], {}
+    plans, kept = [], {}
 
     def counting(i, planner):
         """Plan task i, recording its launches; keep the first DDIM task's
         planner, generator state and plan for the replay."""
         state = planner._generator.get_state()
-        before = (collision_guide.launches, grid_lookup.launches)
+        before = counts()
         out = planner()
-        counts.append((planner.cfg.sampler, collision_guide.launches - before[0],
-                       grid_lookup.launches - before[1]))
+        plans.append((planner.cfg.sampler, grown(before), planner.cfg.n_guided_steps()))
         if planner.cfg.sampler == "ddim" and not kept:
             kept.update(planner=planner, state=state, out=out)
         return out
@@ -1600,13 +1798,12 @@ def run_eval_phase(dev, guide_calls, plain_lookup, n_tasks: int = EVAL_TASKS,
     runs = [(env, {}) for env in maps]
     runs += [(EVAL_EXTRA_MAP, {"bf16": True}), (EVAL_EXTRA_MAP, {"sampler": "ddim"})]
     rows = []
-    grid_lookup.launches = collision_guide.launches = 0  # eval path starts
+    zero_counts()  # eval path starts
     t0 = time.perf_counter()
     for env, kw in runs:
         rows.append(evaluate(env, n_tasks=n_tasks, device=dev, registry=registry,
                              run_plan=counting, **kw))
-    launches = {"grid_sdf_lookup": grid_lookup.launches,
-                "collision_guide": collision_guide.launches}  # eval path ends
+    launches = counts()  # eval path ends
     wall = time.perf_counter() - t0
     failures = []
     for row in rows:
@@ -1622,26 +1819,25 @@ def run_eval_phase(dev, guide_calls, plain_lookup, n_tasks: int = EVAL_TASKS,
                          and row["adherence"] is not None
                          and row["adherence"] >= ref["adherence"] - EVAL_ADHERENCE_BAND):
             failures.append(row["model"])
-    cfg = kept["planner"].cfg if kept else None
-    want = {"ddpm": (guide_calls, 1),
-            "ddim": ((cfg.n_guided_steps() * cfg.n_guide_steps) if cfg else None, 1)}
-    wrong = [c for c in counts if c[1:] != want[c[0]]]
-    print(f"eval: {len(counts)} plans in {wall:.2f} s, launches by plan: DDPM "
-          f"{sorted({c[1:] for c in counts if c[0] == 'ddpm'})}, DDIM "
-          f"{sorted({c[1:] for c in counts if c[0] == 'ddim'})} (expected {want}); totals "
-          f"{launches}")
+    # A DDPM plan's 14 guided steps and a DDIM plan's 3, one guide loop each.
+    expected = {"ddpm": want(14, 0, 1), "ddim": want(3, 0, 1)}
+    wrong = [p for p in plans if p[1] != want(p[2], 0, 1) or p[1] != expected[p[0]]]
+    by_kind = {k: sorted({tuple(p[1].values()) for p in plans if p[0] == k})
+               for k in expected}
+    print(f"eval: {len(plans)} plans in {wall:.2f} s, launches (guide loop, collision guide, "
+          f"lookup) by plan: {by_kind} (expected {expected}); totals {launches}")
     if failures:
         raise RuntimeError(f"evaluation rates outside their bands: {failures}")
-    if wrong or len(counts) != n_tasks * len(runs):
-        raise RuntimeError(f"evaluation plans launched {wrong[:5]}, expected {want}")
+    if wrong or len(plans) != n_tasks * len(runs):
+        raise RuntimeError(f"evaluation plans launched {wrong[:5]}, expected {expected}")
 
     planner = kept["planner"]
     planner._generator.set_state(kept["state"])
-    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+    with plain_kernels():
         replay = planner(noise=planner.draw_noise())
     diff = float((kept["out"].trajs_final - replay.trajs_final).abs().max())
-    print(f"replay: the first DDIM {EVAL_EXTRA_MAP} plan on the card with both plain "
-          f"versions, max |trajs_final kernels - plain| {diff:.3e} (tolerance {REPLAY_TOL})")
+    print(f"replay: the first DDIM {EVAL_EXTRA_MAP} plan on the card with every plain "
+          f"version, max |trajs_final kernels - plain| {diff:.3e} (tolerance {REPLAY_TOL})")
     if not diff <= REPLAY_TOL or not torch.isfinite(replay.trajs_final).all():
         raise RuntimeError(f"the kernels' and the plain versions' DDIM plans differ by {diff}")
     return {"launches": launches, "summary": {"rows": rows, "wall_s": wall,
@@ -1681,7 +1877,7 @@ class GuardedGPMP2:
         return out
 
 
-def run_datagen_phase(dev, plain_lookup, n_contexts: int = DATAGEN_CONTEXTS,
+def run_datagen_phase(dev, n_contexts: int = DATAGEN_CONTEXTS,
                       n_trajectories: int = DATAGEN_TRAJS, opt_iters: int = DATAGEN_ITERS,
                       n_linear: int = DATAGEN_LINEAR):
     """Phase 13 (module docstring): data generation on the card."""
@@ -1691,7 +1887,6 @@ def run_datagen_phase(dev, plain_lookup, n_contexts: int = DATAGEN_CONTEXTS,
     from mmd_torch.datagen import generate, hybrid, native_rrt
     from mmd_torch.datagen.synthetic import generate_linear_dataset
     from mmd_torch.datasets.trajectories import TrajectoryDataset, model_id
-    from mmd_torch.ops.collision_guide import collision_guide
     from mmd_torch.ops.sdf_kernel import grid_lookup
     from mmd_torch.tools.profile_plan import _busy_us, _traced
 
@@ -1712,7 +1907,7 @@ def run_datagen_phase(dev, plain_lookup, n_contexts: int = DATAGEN_CONTEXTS,
               f"debug mode 'error' (no host sync in its loop), {guard.lookups[-1]} lookups "
               f"for {opt_iters} iterations")
         results = []
-        grid_lookup.launches = collision_guide.launches = 0  # datagen path starts
+        zero_counts()  # datagen path starts
         for env_name in DATAGEN_MAPS:
             rng = np.random.default_rng(DATAGEN_SEED)
             for i in range(n_contexts):
@@ -1720,12 +1915,9 @@ def run_datagen_phase(dev, plain_lookup, n_contexts: int = DATAGEN_CONTEXTS,
                 ctx = context(env_name, rng)
                 results.append((env_name, i, ctx, grid_lookup.launches - before,
                                 guard.ms[-1], guard.lookups[-1], guard.nan[-1]))
-        launches = {"grid_sdf_lookup": grid_lookup.launches,
-                    "collision_guide": collision_guide.launches}
-        # datagen path ends
-    if launches["collision_guide"] != 0:
-        raise RuntimeError(f"data generation launched the collision guide "
-                           f"{launches['collision_guide']} times; it has no guide")
+        launches = counts()  # datagen path ends
+    if launches["collision_guide"] or launches["guide_loop"]:
+        raise RuntimeError(f"data generation launched {launches}; it has no guide")
     summary = []
     for env_name, i, ctx, n_lookups, gpmp2_ms, loop_lookups, nan in results:
         summary.append({"env": env_name, "context": i, "planner": ctx.planner,
@@ -1810,8 +2002,6 @@ def run_experiments_phase(dev, n_trials: int = EXPERIMENT_TRIALS):
     from mmd_torch.experiments.launcher import Launcher
     from mmd_torch.experiments.status import TrialSuccessStatus
     from mmd_torch.experiments.trial import ModelRegistry, audit_solution_collisions
-    from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.sdf_kernel import grid_lookup
     from mmd_torch.tools.launch_multi_agent_experiment import run_multi_agent_experiment
     from mmd_torch.tools.pair_sweeps import expected_launches, text_aggregate, text_status
     from mmd_torch.tools.worker_check import lookup_on_card
@@ -1831,10 +2021,9 @@ def run_experiments_phase(dev, n_trials: int = EXPERIMENT_TRIALS):
         num_trials_per_combination=n_trials)
     registry = ModelRegistry(os.path.join(ROOT, "data_trained_models"),
                              os.path.join(ROOT, "data_trajectories"), device=dev)
-    grid_lookup.launches = collision_guide.launches = 0  # experiments path starts
+    zero_counts()  # experiments path starts
     analyzed, n_failed = run_multi_agent_experiment(cfg, EXPERIMENT_OUT, registry)
-    launches = {"grid_sdf_lookup": grid_lookup.launches,
-                "collision_guide": collision_guide.launches}  # experiments path ends
+    launches = counts()  # experiments path ends
     sweep_s = time.perf_counter() - t_phase
     if n_failed:
         raise RuntimeError(f"{n_failed} trials raised (build/chip_smoke_experiments/"
@@ -1860,15 +2049,14 @@ def run_experiments_phase(dev, n_trials: int = EXPERIMENT_TRIALS):
 
     ids = trials["XECBS"][0].global_model_ids
     grid_tiles = len(ids) * len(ids[0])
-    want = expected_launches(trials["XECBS"] + trials["PP"], grid_tiles)
-    fresh, local = want.pop("plans_fresh"), want.pop("plans_local")
-    want.pop("sampler_calls")
-    print(f"experiments: plans fresh {fresh}, local {local}; launches collision "
-          f"{launches['collision_guide']}, lookup {launches['grid_sdf_lookup']} (expected "
-          f"{want['collision_guide']} and {want['grid_sdf_lookup']}: 3 a plan and 2 x "
-          f"{grid_tiles} a trial)")
-    if launches != want:
-        raise RuntimeError(f"the sweep launched {launches}, expected {want}")
+    expected = expected_launches(trials["XECBS"] + trials["PP"], grid_tiles)
+    fresh, local = expected.pop("plans_fresh"), expected.pop("plans_local")
+    expected.pop("sampler_calls")
+    print(f"experiments: plans fresh {fresh}, local {local}; launches {launches} (expected "
+          f"{expected}: a guide loop a guided step, 3 lookups a plan and 2 x {grid_tiles} "
+          f"a trial)")
+    if launches != expected:
+        raise RuntimeError(f"the sweep launched {launches}, expected {expected}")
 
     summary = {"trials": n_trials, "sweep_s": sweep_s, "launches": launches,
                "plans_fresh": fresh, "plans_local": local}
@@ -1923,27 +2111,22 @@ def run_experiments_phase(dev, n_trials: int = EXPERIMENT_TRIALS):
     return {"launches": launches, "summary": summary}
 
 
-def run_speculative_phase(dev, cfg, plain_lookup):
+def run_speculative_phase(dev, cfg):
     """Phase 15 (module docstring): bench.py's XECBS-R, and one trial of
     JAX's dense Conveyor grid at frontier width 2."""
     import numpy as np
     import torch
 
     from mmd_torch import bench
-    from mmd_torch.costs import guide
-    from mmd_torch.costs.guide import collision_guide_plain
     from mmd_torch.experiments.experiments import MultiAgentPlanningExperimentConfig
     from mmd_torch.experiments.status import TrialSuccessStatus
     from mmd_torch.experiments.trial import ModelRegistry, run_multi_agent_trial
-    from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.sdf_kernel import grid_lookup
     from mmd_torch.planners.multi_agent import fused
     from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
     from mmd_torch.tools.pair_sweeps import expected_launches
 
     t_phase = time.perf_counter()
-    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
-    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
+    per_fresh, per_local = cfg.n_guided_steps(), cfg.n_guided_steps(3)
     launches, summary = {}, {}
 
     # (a) XECBS-R through the bench's own builders.
@@ -1966,10 +2149,9 @@ def run_speculative_phase(dev, cfg, plain_lookup):
     kept_states = [p._generator.get_state() for p in planners]
     team = bench.make_team_planner(s, planners, starts, goals)
     team.greedy_audit = []
-    grid_lookup.launches = collision_guide.launches = 0  # xecbs_r path starts
+    zero_counts()  # xecbs_r path starts
     paths, n_exp, status, n_conflicts = team.plan(runtime_limit=600)
-    got = {"grid_sdf_lookup": grid_lookup.launches,
-           "collision_guide": collision_guide.launches}  # xecbs_r path ends
+    got = counts()  # xecbs_r path ends
     t = dict(team.timing)
     fresh, local = t["plans_fresh"], t["plans_local"]
     calls_fresh, calls_local = calls_of(t)
@@ -1979,8 +2161,7 @@ def run_speculative_phase(dev, cfg, plain_lookup):
           f"round) in {t['plan_s']:.3f} s, {status}, {n_conflicts} conflicts, {n_exp} "
           f"expansions; host waits {t['device_calls']} by phase {waits}; plans fresh {fresh}, "
           f"local {local}; sampler calls fresh {calls_fresh}, local {calls_local}; launches "
-          f"collision {got['collision_guide']}, lookup {got['grid_sdf_lookup']}; audit "
-          f"{team.greedy_audit}")
+          f"{got}; audit {team.greedy_audit}")
     # The fresh team root and the repair round: two calls of 10 agents.
     if (calls_fresh, fresh) != (2, 2 * TEAM_AGENTS):
         raise RuntimeError(f"XECBS-R made {fresh} fresh plans in {calls_fresh} sampler "
@@ -1991,19 +2172,19 @@ def run_speculative_phase(dev, cfg, plain_lookup):
     if t.get("device_repair_calls") != 3:
         raise RuntimeError(f"XECBS-R read its repair {t.get('device_repair_calls')} times, "
                            f"not 3 (reselect, round, reselect)")
-    want = {"collision_guide": per_fresh * calls_fresh + per_local * calls_local,
-            "grid_sdf_lookup": calls_fresh + calls_local}
-    if got != want:
-        raise RuntimeError(f"XECBS-R launched {got}, expected {want}")
+    expected = want(per_fresh * calls_fresh + per_local * calls_local, 0,
+                    calls_fresh + calls_local)
+    if got != expected:
+        raise RuntimeError(f"XECBS-R launched {got}, expected {expected}")
     kept = team.final
     for p, state in zip(planners, kept_states):
         p._generator.set_state(state)
     replay = bench.make_team_planner(s, planners, starts, goals)
-    with plain_lookup(), routed(guide, "collision_guide", collision_guide_plain):
+    with plain_kernels():
         _, replay_exp, _, _ = replay.plan(runtime_limit=600)
     diff = float((kept.paths_all - replay.final.paths_all).abs().max())
     same = replay_exp == n_exp and kept.ix_best == replay.final.ix_best
-    print(f"replay: XECBS-R on the card with both plain versions in "
+    print(f"replay: XECBS-R on the card with every plain version in "
           f"{replay.timing['plan_s']:.3f} s, {replay_exp} expansions, indices equal "
           f"{kept.ix_best == replay.final.ix_best}, max |trajs_final kernels - plain| "
           f"{diff:.3e} (tolerance {REPLAY_TOL})")
@@ -2032,14 +2213,13 @@ def run_speculative_phase(dev, cfg, plain_lookup):
         rounds.append(len(nodes))
         return real_frontier(team_, noise_m, nodes, *a, **k)
 
-    grid_lookup.launches = collision_guide.launches = 0  # dense path starts
+    zero_counts()  # dense path starts
     with routed(fused, "frontier_greedy_expand", frontier):
         r = run_multi_agent_trial(trial_cfg, registry, save=False)
-    got = {"grid_sdf_lookup": grid_lookup.launches,
-           "collision_guide": collision_guide.launches}  # dense path ends
-    want = expected_launches([r], grid_tiles=1)
-    fresh, local = want.pop("plans_fresh"), want.pop("plans_local")
-    calls = want.pop("sampler_calls")
+    got = counts()  # dense path ends
+    expected = expected_launches([r], grid_tiles=1)
+    fresh, local = expected.pop("plans_fresh"), expected.pop("plans_local")
+    calls = expected.pop("sampler_calls")
     tt = r.team_timing
     print(f"speculative: dense trial {DENSE_TRIAL} of {DENSE_INSTANCE}, {DENSE_AGENTS} agents "
           f"(vd, f32, XECBS, frontier width {DENSE_WIDTH}, {DENSE_RUNTIME_LIMIT:.0f} s): "
@@ -2047,15 +2227,14 @@ def run_speculative_phase(dev, cfg, plain_lookup):
           f"{r.num_ct_expansions} expansions in {r.planning_time:.3f} s; frontier rounds "
           f"of {rounds} nodes; plans fresh {fresh}, local {local} in {calls} sampler calls "
           f"({tt['sampler_calls_local']} local); host waits "
-          f"{tt['device_calls']}; launches collision {got['collision_guide']}, lookup "
-          f"{got['grid_sdf_lookup']} (expected {want})")
+          f"{tt['device_calls']}; launches {got} (expected {expected})")
     if r.success_status != TrialSuccessStatus.SUCCESS or r.num_collisions_in_solution != 0:
         raise RuntimeError(f"dense trial: {r.success_status}, "
                            f"{r.num_collisions_in_solution} collisions")
     if not any(m >= 2 for m in rounds):
         raise RuntimeError(f"the dense trial ran no frontier round of two nodes: {rounds}")
-    if got != want:
-        raise RuntimeError(f"the dense trial launched {got}, expected {want}")
+    if got != expected:
+        raise RuntimeError(f"the dense trial launched {got}, expected {expected}")
     if not all(np.isfinite(p).all() for p in r.agent_path_l):
         raise RuntimeError("dense trial paths not finite")
     launches["dense"] = got
@@ -2111,7 +2290,7 @@ def _sync_free(fn):
     return out, time.perf_counter() - t0
 
 
-def run_baselines_phase(dev, plain_lookup):
+def run_baselines_phase(dev):
     """Phase 16 (module docstring): the classical optimizers, a knob-guided
     MPD plan and the planar arm's GPMP2, each sync-free, counted and replayed
     with the plain lookup; the lookup timed at their shapes; bench_kernels."""
@@ -2124,8 +2303,7 @@ def run_baselines_phase(dev, plain_lookup):
     from mmd_torch.datagen import classical
     from mmd_torch.envs.envs import make_env
     from mmd_torch.ops import sdf_kernel
-    from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
+    from mmd_torch.ops.sdf_kernel import grid_lookup_cuda, grid_lookup_plain
     from mmd_torch.robots import kinematics
     from mmd_torch.tasks.task import make_task
     from mmd_torch.tools import bench_kernels
@@ -2144,21 +2322,21 @@ def run_baselines_phase(dev, plain_lookup):
 
     def measured(name, fn, want_lookups, generator=None, want_guides=0):
         """One run of fn under sync debug mode "error", its launches counted
-        and held, then its replay with the plain lookup (the generator
-        restored), which must be equal."""
+        and held (no guide loop: none of these runs guides the sampler by
+        the guide-loop kernel), then its replay with every plain version
+        (the generator restored), which must be equal."""
         state = None if generator is None else generator.get_state()
         recorder.points = None
-        grid_lookup.launches = collision_guide.launches = 0  # baselines path starts
+        zero_counts()  # baselines path starts
         with routed(sdf_kernel, "grid_lookup_cuda", recorder):
             out, seconds = _sync_free(fn)
-        got = {"grid_sdf_lookup": grid_lookup.launches,
-               "collision_guide": collision_guide.launches}  # baselines path ends
-        if got != {"grid_sdf_lookup": want_lookups, "collision_guide": want_guides}:
-            raise RuntimeError(f"{name} launched {got}, expected {want_lookups} lookups and "
-                               f"{want_guides} collision guides")
+        got = counts()  # baselines path ends
+        if got != want(0, want_guides, want_lookups):
+            raise RuntimeError(f"{name} launched {got}, expected "
+                               f"{want(0, want_guides, want_lookups)}")
         if generator is not None:
             generator.set_state(state)
-        with plain_lookup():
+        with plain_kernels():
             replay = fn()
         outs = out if isinstance(out, tuple) else (out,)
         reps = replay if isinstance(replay, tuple) else (replay,)
@@ -2252,6 +2430,27 @@ def run_baselines_phase(dev, plain_lookup):
                                   "guide": {k: v for k, v in ZOO_GUIDE.items()}}
     if GuideConfig(**ZOO_GUIDE).collision_kernel_applies:
         raise RuntimeError("the knob-guided plan took the collision kernel")
+
+    # (b') the same plan with the zoo terms alone: the guide-loop kernel does
+    # not compute them, so the guide runs its iterations one guide_gradient
+    # at a time, whose collision terms are the collision-guide kernel's.
+    zoo_terms = {k: v for k, v in ZOO_GUIDE.items() if k != "interpolate_collision"}
+    planner.guide_cfg = dataclasses.replace(planner.guide_cfg, interpolate_collision=False)
+    if planner.guide_cfg.guide_loop_applies or not planner.guide_cfg.collision_kernel_applies:
+        raise RuntimeError(f"the zoo-term plan's config {zoo_terms} routes wrongly")
+    planner._plan_fresh(gd, planner.draw_noise(), planner.hard_conds)  # warm-up
+
+    (trajs_final, free_mask), seconds = measured("zoo_terms_plan", zoo_plan, 1,
+                                                 want_guides=guide_calls)
+    free = int(free_mask.sum())
+    print(f"baselines: MPD plan on EnvConveyor2D with {zoo_terms} in {seconds:.3f} s, no host "
+          f"wait; launches {launches['zoo_terms_plan']} ({guide_calls} collision guides, one a "
+          f"guide iteration, no guide loop, the finalize's lookup); free samples {free} of "
+          f"{free_mask.numel()}; the plain replay equal")
+    if not torch.isfinite(trajs_final).all():
+        raise RuntimeError("the zoo-term plan is not finite")
+    summary["zoo_terms_plan"] = {"seconds": seconds, "free": free,
+                                 "samples": int(free_mask.numel()), "guide": zoo_terms}
 
     # (c) the planar arm's GPMP2 on EnvDropRegion2D.
     scene = make_env("EnvDropRegion2D", dev).scene

@@ -11,10 +11,11 @@ caller passes `device="cpu"`. Ported so far: the single-robot MPD planner
 with checkpoints both packages read, `train.checkpoint`), DDIM,
 evaluation and data generation (`tools.eval_model`, `datagen`), and the
 experiment harness (`experiments`, the sweep launchers and
-`tools.results_to_markdown`). Two hand-written CUDA
-kernels run on the card, the collision guide (`csrc/collision_guide.cu`)
-and the grid-SDF lookup (`csrc/grid_sdf.cu`); CPU tensors take their plain
-torch versions.
+`tools.results_to_markdown`). Three hand-written CUDA
+kernels run on the card, the guide loop (`csrc/guide_loop.cu`: a guided
+diffusion step's guide iterations in one launch), the collision guide
+(`csrc/collision_guide.cu`) and the grid-SDF lookup (`csrc/grid_sdf.cu`);
+CPU tensors take their plain torch versions.
 
 Float32 stays float32 on the card in every entry point: importing the
 package keeps cuDNN's convolutions and cuBLAS's matmuls out of TF32, so

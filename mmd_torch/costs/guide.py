@@ -20,6 +20,15 @@ The two collision terms run as one CUDA kernel on the card
 (`mmd_torch/ops/collision_guide.py`) and as `collision_guide_plain`, their
 autograd code, on the CPU.
 
+The sampler runs a diffusion step's n_guide_steps iterations of
+x <- hard.apply(x + guide_gradient(x)) through `guide_loop`, JAX's
+`fori_loop` (mmd_tpu/models/diffusion.py:105-110): on the card one launch
+of the guide-loop kernel (`mmd_torch/ops/guide_loop.py`) for all
+iterations, on the CPU `guide_loop_plain`, the same arithmetic in plain
+torch (each term's analytic gradient, sums in the kernel's order). A
+config the kernel does not compute (a collision knob, a zoo term) keeps
+the loop of `guide_gradient` calls on every device.
+
 The optional knobs are JAX's (`mmd_tpu/costs/guide.py:67-78`): collision
 on the 1.5x-interpolated trajectory, or on the extra objects only, and the
 cost zoo's terms (`mmd_torch/costs/zoo.py`), each clipped, zeroed at the
@@ -48,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from mmd_torch.config import params as default_params
@@ -64,6 +74,7 @@ from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.envs.envs import SceneData, SceneStack
 from mmd_torch.envs.grid_sdf import grid_sdf_pair
 from mmd_torch.ops.collision_guide import collision_guide
+from mmd_torch.ops.guide_loop import gp_constants, guide_loop_cuda
 from mmd_torch.tasks.task import boundary_signed_distances, scene_object_sdf
 from mmd_torch.utils.interp import interpolate_points
 
@@ -99,6 +110,15 @@ class GuideConfig:
         """Whether the collision-guide kernel computes this config's
         collision terms: it reads the 64 support points and both grids."""
         return not (self.interpolate_collision or self.use_extra_objects_only)
+
+    @property
+    def guide_loop_applies(self) -> bool:
+        """Whether the guide-loop kernel computes this config's guide: the
+        collision kernel's terms, the GP prior, the constraints and soft
+        paths on planar positions, and no zoo term."""
+        return (self.collision_kernel_applies and self.q_dim == 2
+                and not (self.weight_max_velocity > 0.0 or self.weight_chomp_smoothness > 0.0
+                         or self.weight_joint_limits > 0.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,3 +257,169 @@ def guide_gradient(x_norm: torch.Tensor, gd: GuideData, cfg: GuideConfig) -> tor
             g_sp = _grad(lambda v: soft_path_cost(v[..., : cfg.q_dim], spc), u)
             total = total + spc.weight[..., None, None, None] * _finish(g_sp, cfg.max_grad_norm)
     return -total
+
+
+# --------------------------------------------------------------- the loop
+# The guide loop's GP prior, constraint and soft-path terms follow JAX's
+# float32 arithmetic on the CPU, where XLA fuses a norm's sum of squares
+# and the GP prior's products into fused multiply-adds: `_fma` rounds
+# a * b + c once, through float64, and the kernel does the same. The
+# collision terms are the collision kernel's (`collision_guide_plain`).
+_EPS = float(np.float32(1e-6))
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32 (a * b is exact in float64)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    return (a.double() * b + c.double()).float()
+
+
+def _norm(a: torch.Tensor) -> torch.Tensor:
+    """||a|| over the last axis, the squares summed in order by fused
+    multiply-adds (jnp.linalg.norm on the CPU)."""
+    sq = a[..., 0] * a[..., 0]
+    for c in range(1, a.shape[-1]):
+        sq = _fma(a[..., c], a[..., c], sq)
+    return torch.sqrt(sq)
+
+
+def _clip_rows(g: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The guide's _finish on every waypoint of g (..., H, 4), or of a
+    position-only term (..., H, 2) whose velocity channels are 0: the clip
+    by ||g + 1e-6|| over four channels, then 0 at the first and last
+    waypoint (the kernel's `clip_rows`)."""
+    a = g + 1e-6
+    if g.shape[-1] == 2:
+        a = torch.cat([a, torch.full_like(a, _EPS)], dim=-1)
+    norm = _norm(a)
+    g = g * (torch.clamp(norm, 0.0, max_norm) / norm)[..., None]
+    g[..., 0, :] = 0.0
+    g[..., -1, :] = 0.0
+    return g
+
+
+def _gp_grad_rows(u: torch.Tensor, dt: float, pp: float, pv: float, vv: float) -> torch.Tensor:
+    """d/du of the GP prior's sum_t e_t^T Q e_t, e_t = u_{t+1} - Phi u_t,
+    at the inner waypoints (0 at the first and last): 2 Q e_{h-1} - Phi^T
+    2 Q e_h, channel by channel as the kernel computes it (Q e with JAX's
+    fused multiply-add)."""
+    s, t = u[..., :-1, :], u[..., 1:, :]
+    ep = t[..., :2] - (s[..., :2] + dt * s[..., 2:])
+    ev = t[..., 2:] - s[..., 2:]
+    gep = 2.0 * _fma(ev, pv, pp * ep)
+    gev = 2.0 * _fma(ev, vv, pv * ep)
+    g = torch.zeros_like(u)
+    g[..., 1:-1, :2] = gep[..., :-1, :] - gep[..., 1:, :]
+    g[..., 1:-1, 2:] = gev[..., :-1, :] - (dt * gep[..., 1:, :] + gev[..., 1:, :])
+    return g
+
+
+def _relu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d/dz of max(z, 0): 1, 0.5 at z == 0 (torch.maximum's), 0."""
+    return torch.where(z > 0, 1.0, torch.where(z == 0, 0.5, 0.0))
+
+
+def _ball_grad(diff: torch.Tensor, radius: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """d/dq of relu(radius - ||q - c||) * m from diff = q - c (..., 2):
+    diff * (-(relu'(radius - d) * m) / d), 0 where d == 0 (torch's norm
+    gradient there; JAX's is NaN)."""
+    d = _norm(diff)
+    s = -(_relu_grad(radius - d) * m) / d
+    return torch.where((d > 0)[..., None], diff * s[..., None], 0.0)
+
+
+def _grouped(t: torch.Tensor, dims: int) -> torch.Tensor:
+    """A per-group input with a leading group axis, 1 where it is shared."""
+    return t if t.dim() > dims else t[None]
+
+
+def _constraint_step(q: torch.Tensor, cset: ConstraintSet, max_norm: float) -> torch.Tensor:
+    """Every constraint's clipped, weighted gradient, summed over k in
+    order; q (G, B, H, 2), the set shared or one a group."""
+    cq, ct = _grouped(cset.q, 3), _grouped(cset.t_range, 3)            # (Gc, K, P, 2)
+    cr, cpm = _grouped(cset.radius, 2), _grouped(cset.point_mask, 2)  # (Gc, K, P)
+    cw, ca = _grouped(cset.weight, 1), _grouped(cset.active, 1)       # (Gc, K)
+    K, P, H = cq.shape[1], cq.shape[2], q.shape[-2]
+    h_idx = torch.arange(H, dtype=q.dtype, device=q.device)
+    qk = q[:, None]                                                   # (G, 1, B, H, 2)
+    acc = torch.zeros((q.shape[0], K, *q.shape[1:]), dtype=q.dtype, device=q.device)
+    for p in range(P):
+        in_range = ((h_idx >= ct[:, :, p, 0, None]) & (h_idx < ct[:, :, p, 1, None])).to(q.dtype)
+        m = (in_range * cpm[:, :, p, None]) * ca[:, :, None]          # (Gc, K, H)
+        acc = acc + _ball_grad(qk - cq[:, :, None, None, p, :], cr[:, :, p, None, None],
+                               m[:, :, None, :])
+    weighted = cw[:, :, None, None, None] * _clip_rows(acc, max_norm)
+    out = torch.zeros_like(q)
+    for k in range(K):
+        out = out + weighted[:, k]
+    return out
+
+
+def _soft_path_step(q: torch.Tensor, spc: SoftPathConstraints, max_norm: float) -> torch.Tensor:
+    """The soft paths' clipped, weighted gradient: the balls of waypoint h
+    summed over r in order; q (G, B, H, 2), the paths shared or one a
+    group."""
+    pts, msk = _grouped(spc.points, 3), _grouped(spc.mask, 2)         # (Gs, R, H, 2), (Gs, R, H)
+    radius = spc.radius.reshape(-1, 1, 1)
+    acc = torch.zeros_like(q)
+    for r in range(pts.shape[1]):
+        acc = acc + _ball_grad(q - pts[:, r, None], radius, msk[:, r, None])
+    return spc.weight.reshape(-1, 1, 1, 1) * _clip_rows(acc, max_norm)
+
+
+def _add_positions(total: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return torch.cat([total[..., :2] + g, total[..., 2:]], dim=-1)
+
+
+def guide_loop_plain(x: torch.Tensor, gd: GuideData, hard, cfg: GuideConfig,
+                     n_steps: int) -> torch.Tensor:
+    """The guide-loop kernel's plain version: n_steps iterations of
+    x <- hard.apply(x + guide_gradient(x, gd, cfg)) with each term's
+    analytic gradient, in the kernel's float32 operations and order (the
+    collision terms are `collision_guide_plain`, the collision kernel's
+    plain version). x (B, H, 4) or G groups' (G, B, H, 4) as the kernel
+    takes it (`mmd_torch/ops/guide_loop.py`)."""
+    if n_steps == 0 or x.numel() == 0:
+        return x
+    dt, pp, pv, vv = gp_constants(cfg.dt)
+    cset = gd.constraints if gd.constraints.n_active > 0 else None
+    for _ in range(n_steps):
+        u = gd.normalizer.unnormalize(x)
+        total = collision_guide_plain(u, gd.scene, cfg)
+        total = total + cfg.weight_smoothness * _clip_rows(_gp_grad_rows(u, dt, pp, pv, vv),
+                                                           cfg.max_grad_norm)
+        q = u[..., :2] if u.dim() == 4 else u[None, ..., :2]
+        if cset is not None:
+            total = _add_positions(total, _constraint_step(q, cset, cfg.max_grad_norm)
+                                   .reshape(total.shape[:-1] + (2,)))
+        if gd.soft_paths is not None:
+            total = _add_positions(total, _soft_path_step(q, gd.soft_paths, cfg.max_grad_norm)
+                                   .reshape(total.shape[:-1] + (2,)))
+        x = hard.apply(x - total)
+    return x
+
+
+def guide_iterations(x: torch.Tensor, gd: GuideData, hard, cfg: GuideConfig,
+                     n_steps: int) -> torch.Tensor:
+    """The guide loop one `guide_gradient` call and `hard.apply` at a time:
+    the loop of a config the guide-loop kernel does not compute."""
+    for _ in range(n_steps):
+        x = hard.apply(x + guide_gradient(x, gd, cfg))
+    return x
+
+
+def guide_loop(x: torch.Tensor, gd: GuideData, hard, cfg: GuideConfig,
+               n_steps: int) -> torch.Tensor:
+    """A guided diffusion step's guide loop: n_steps iterations of
+    x <- hard.apply(x + guide_gradient(x, gd, cfg)) (JAX's fori_loop,
+    mmd_tpu/models/diffusion.py:105-110). A CUDA tensor goes to the
+    guide-loop kernel (one launch), a CPU tensor to `guide_loop_plain`; a
+    config the kernel does not compute runs the iterations one
+    `guide_gradient` at a time on either."""
+    if not cfg.guide_loop_applies:
+        return guide_iterations(x, gd, hard, cfg, n_steps)
+    if x.is_cuda:
+        return guide_loop_cuda(x, gd, hard, cfg, n_steps)
+    if x.device.type == "cpu":
+        return guide_loop_plain(x, gd, hard, cfg, n_steps)
+    raise ValueError(f"guide_loop: unsupported device {x.device}")

@@ -61,48 +61,27 @@
 // (torch.maximum). The clip's norm is taken over all four channels of
 // g + 1e-6, as (a^2 + b^2) + (c^2 + d^2).
 //
+// The per-waypoint arithmetic is collision_terms.cuh's, shared with the
+// guide-loop kernel (guide_loop.cu), which runs it in every iteration of
+// a diffusion step's guide loop; this kernel serves the guide's single
+// evaluations (`guide_gradient`).
+//
 // C interface (bound with ctypes): collision_guide(...) launches on the
 // given stream and returns cudaGetLastError() as an int; 0 is success.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "collision_terms.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ int cell_of(float x, float lo, float span, int n) {
-  float f = floorf(__fmul_rn(__fdiv_rn(__fsub_rn(x, lo), span), (float)n));
-  f = fminf(fmaxf(f, 0.0f), (float)(n - 1));
-  return (int)f;
-}
-
-// d/dx of max(x, 0) times g, as torch.maximum's backward computes it.
-__device__ __forceinline__ float relu_grad(float x, float g) {
-  return x > 0.0f ? g : (x == 0.0f ? __fmul_rn(g, 0.5f) : 0.0f);
-}
-
-// The guide's _finish on one waypoint (gx, gy, 0, 0): scale by
-// min(||g + 1e-6||, max_norm) / ||g + 1e-6||, then the weight.
-__device__ __forceinline__ float2 clip_and_weigh(float gx, float gy,
-                                                 float max_norm, float w) {
-  const float eps = 1e-6f;
-  const float a = __fadd_rn(gx, eps), b = __fadd_rn(gy, eps);
-  const float sq = __fadd_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)),
-                             __fadd_rn(__fmul_rn(eps, eps), __fmul_rn(eps, eps)));
-  const float norm = __fsqrt_rn(sq);
-  const float scale = __fdiv_rn(fminf(fmaxf(norm, 0.0f), max_norm), norm);
-  return make_float2(__fmul_rn(w, __fmul_rn(gx, scale)),
-                     __fmul_rn(w, __fmul_rn(gy, scale)));
-}
-
 __global__ void __launch_bounds__(kThreads) collision_guide_kernel(
     const float4* __restrict__ u, int64_t n_rows, int horizon,
-    int64_t tile_rows, const float4* __restrict__ cells, int n0, int n1,
-    float lo0, float lo1,
-    float span0, float span1, float wall_lo0, float wall_lo1,
-    float wall_hi0, float wall_hi1, float margin, float weight,
-    float max_norm, float4* __restrict__ out) {
+    int64_t tile_rows, const float4* __restrict__ cells,
+    const mmd::CollisionScene scene, float4* __restrict__ out) {
   const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rows) return;
   const int h = (int)(r % horizon);
@@ -111,50 +90,10 @@ __global__ void __launch_bounds__(kThreads) collision_guide_kernel(
     return;
   }
   const float4 row = __ldg(u + r);
-  const float x = row.x, y = row.y;
-
-  // Objects: relu(margin - min(v0, v1)); the gradient of the smaller grid's
-  // cell (both halves on a tie) times the cell gradients, in the row's
-  // tile's table.
-  const int64_t cell = (r / tile_rows) * n0 * n1 +
-      (int64_t)cell_of(x, lo0, span0, n0) * n1 + cell_of(y, lo1, span1, n1);
-  const float4 c0 = __ldg(cells + 2 * cell);      // v0, g0x, g0y, v1
-  const float4 c1 = __ldg(cells + 2 * cell + 1);  // g1x, g1y, 0, 0
-  const float v0 = c0.x, v1 = c0.w;
-  const float g_sd = -relu_grad(__fsub_rn(margin, fminf(v0, v1)), 1.0f);
-  const float g_half = __fmul_rn(g_sd, 0.5f);
-  const float g0 = v0 == v1 ? g_half : (v0 < v1 ? g_sd : 0.0f);
-  const float g1 = v0 == v1 ? g_half : (v1 < v0 ? g_sd : 0.0f);
-  const float obj_x = __fadd_rn(__fmul_rn(g0, c0.y), __fmul_rn(g1, c1.x));
-  const float obj_y = __fadd_rn(__fmul_rn(g0, c0.z), __fmul_rn(g1, c1.y));
-
-  // Walls: signed distances (x - lo0, y - lo1, hi0 - x, hi1 - y), the max
-  // of their relu(margin - sd), its gradient shared by the tied walls.
-  const float xw[4] = {__fsub_rn(margin, __fsub_rn(x, wall_lo0)),
-                       __fsub_rn(margin, __fsub_rn(y, wall_lo1)),
-                       __fsub_rn(margin, __fsub_rn(wall_hi0, x)),
-                       __fsub_rn(margin, __fsub_rn(wall_hi1, y))};
-  float pen[4], pen_max = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    pen[k] = fmaxf(xw[k], 0.0f);
-    pen_max = fmaxf(pen_max, pen[k]);
-  }
-  int n_tied = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) n_tied += pen[k] == pen_max;
-  const float share = __fdiv_rn(1.0f, (float)n_tied);
-  float gw[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) gw[k] = relu_grad(xw[k], pen[k] == pen_max ? share : 0.0f);
-  // d sd / dq is +1 for the low walls and -1 for the high ones, and
-  // d pen / d sd is -1: the low walls push by -gw, the high ones by +gw.
-  const float bnd_x = __fadd_rn(-gw[0], gw[2]);
-  const float bnd_y = __fadd_rn(-gw[1], gw[3]);
-
-  const float2 a = clip_and_weigh(obj_x, obj_y, max_norm, weight);
-  const float2 b = clip_and_weigh(bnd_x, bnd_y, max_norm, weight);
-  out[r] = make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), 0.0f, 0.0f);
+  // The row's tile's table.
+  const float4* table = cells + 2 * (r / tile_rows) * scene.n0 * scene.n1;
+  const float2 g = mmd::collision_step(row.x, row.y, table, scene);
+  out[r] = make_float4(g.x, g.y, 0.0f, 0.0f);
 }
 
 }  // namespace
@@ -168,11 +107,12 @@ extern "C" int collision_guide(
   if (n_rows <= 0 || horizon < 2 || tile_rows <= 0 || tile_rows % horizon ||
       n_rows % tile_rows)
     return (int)cudaErrorInvalidValue;
+  const mmd::CollisionScene scene{n0, n1, lo0, lo1, span0, span1, wall_lo0, wall_lo1,
+                                  wall_hi0, wall_hi1, margin, weight, max_norm};
   const long long blocks = (n_rows + kThreads - 1) / kThreads;
   collision_guide_kernel<<<(unsigned int)blocks, kThreads, 0,
                            (cudaStream_t)stream>>>(
       (const float4*)u, (int64_t)n_rows, horizon, (int64_t)tile_rows,
-      (const float4*)cells, n0, n1, lo0, lo1, span0, span1, wall_lo0, wall_lo1, wall_hi0, wall_hi1,
-      margin, weight, max_norm, (float4*)out);
+      (const float4*)cells, scene, (float4*)out);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@ for fresh plans and XCBS's warm-started local inference. Semantics:
 - x0 is predicted from epsilon and clamped to [-1, 1]
   (diffusion_model_base.py:148-160)
 - guidance (n_guide_steps of x += guide(x), re-applying the hard
-  conditions) only while i < t_start_guide (sample_functions.py:63-72)
+  conditions) only while i < t_start_guide (sample_functions.py:63-72):
+  `guide_loop`, one launch of the guide-loop kernel a guided step on the
+  card, as JAX runs its iterations as one fori_loop
 - extra noise std multiplier 0.5 (mpd.py:303)
 - the chain stacks the initial noise and every step's output:
   (n_steps + n_no_noise + 1, B, H, D) (diffusion_model_base.py:321-351)
@@ -46,7 +48,7 @@ import torch
 from torch import nn
 
 from mmd_torch.config import DiffusionConfig
-from mmd_torch.costs.guide import GuideConfig, GuideData, guide_gradient
+from mmd_torch.costs.guide import GuideConfig, GuideData, guide_loop
 from mmd_torch.models.schedules import DiffusionSchedule
 
 
@@ -160,8 +162,7 @@ def _guide_and_noise(schedule: DiffusionSchedule, x: torch.Tensor, i: int,
     iterations, then the step's noise."""
     t = max(i, 0)
     if guided and gd is not None:
-        for _ in range(cfg.n_guide_steps):
-            x = hard.apply(x + guide_gradient(x, gd, guide_cfg))
+        x = guide_loop(x, gd, hard, guide_cfg, cfg.n_guide_steps)
 
     if i > 0:  # no noise at and after t = 0
         std = torch.exp(0.5 * _coef(schedule.posterior_log_variance_clipped, t, x.dim()))
@@ -248,8 +249,7 @@ def ddim_step(model: nn.Module, schedule: DiffusionSchedule, x: torch.Tensor, t:
     ac_next = schedule.alphas_cumprod[t_next]
     x = torch.sqrt(ac_next) * x0 + torch.sqrt(1.0 - ac_next) * eps
     if gd is not None and t_next < cfg.t_start_guide:
-        for _ in range(cfg.n_guide_steps):
-            x = hard.apply(x + guide_gradient(x, gd, guide_cfg))
+        x = guide_loop(x, gd, hard, guide_cfg, cfg.n_guide_steps)
     return hard.apply(x)
 
 

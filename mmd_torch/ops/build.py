@@ -2,8 +2,8 @@
 
 `nvcc` compiles each `.cu` file with a plain C interface into
 `build/lib<stem>-<digest>.so` at the repository root; the digest covers the
-source, the flags and the compiler path, so an edited source never loads a
-stale library. The library is loaded with `ctypes` by the op that owns it.
+source, the headers of `csrc/` it may include, the flags and the compiler
+path, so an edited source or header never loads a stale library. The library is loaded with `ctypes` by the op that owns it.
 """
 from __future__ import annotations
 
@@ -43,10 +43,11 @@ def build_shared_libraries(sources: Sequence[Path],
     one nvcc process per source, all started together; return the
     libraries in order."""
     nvcc = find_nvcc()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     outs, jobs = [], []
     try:
         for source in sources:
-            digest = hashlib.sha256(source.read_bytes() + "\0".join(
+            digest = hashlib.sha256(source.read_bytes() + headers + "\0".join(
                 (nvcc, *NVCC_FLAGS)).encode()).hexdigest()[:16]
             out = build_dir / f"lib{source.stem}-{digest}.so"
             outs.append(out)
@@ -79,8 +80,9 @@ def build_shared_libraries(sources: Sequence[Path],
 def load_kernels() -> None:
     """Build the port's kernels (one nvcc per missing library, all started
     together) and load them, so that no later call builds one."""
-    from mmd_torch.ops import collision_guide, sdf_kernel
+    from mmd_torch.ops import collision_guide, guide_loop, sdf_kernel
 
-    build_shared_libraries([sdf_kernel.SOURCE, collision_guide.SOURCE])
+    build_shared_libraries([sdf_kernel.SOURCE, collision_guide.SOURCE, guide_loop.SOURCE])
     sdf_kernel.load_library()
     collision_guide.load_library()
+    guide_loop.load_library()

@@ -56,15 +56,14 @@ def text_aggregate(path: str) -> Dict:
 def expected_launches(trials, grid_tiles: int, cfg: DiffusionConfig = DiffusionConfig()) -> Dict:
     """The kernel launches that the trials' plans make on the card, by the
     plan and sampler-call counts each trial saved (`team_timing`): the
-    collision guide once a guide call of a sampler call (280 a fresh call
-    and 80 a local one at the default schedule, whatever its number of
-    problems), the lookup once a tile a sampler call (the finalize), and
-    once a grid tile for each of the team's two checks of its starts and
-    goals."""
-    per_fresh = cfg.n_guided_steps() * cfg.n_guide_steps
-    per_local = cfg.n_guided_steps(3) * cfg.n_guide_steps
-    out = {"plans_fresh": 0, "plans_local": 0, "sampler_calls": 0, "collision_guide": 0,
-           "grid_sdf_lookup": 0}
+    guide loop once a guided step of a sampler call (14 a fresh call and 4
+    a local one at the default schedule, whatever its number of problems),
+    no collision guide (its work runs inside the guide loop), the lookup
+    once a tile a sampler call (the finalize), and once a grid tile for
+    each of the team's two checks of its starts and goals."""
+    per_fresh, per_local = cfg.n_guided_steps(), cfg.n_guided_steps(3)
+    out = {"plans_fresh": 0, "plans_local": 0, "sampler_calls": 0, "guide_loop": 0,
+           "collision_guide": 0, "grid_sdf_lookup": 0}
     for r in trials:
         t = r.team_timing
         fresh, local = t["plans_fresh"], t["plans_local"]
@@ -76,7 +75,7 @@ def expected_launches(trials, grid_tiles: int, cfg: DiffusionConfig = DiffusionC
         out["plans_fresh"] += fresh
         out["plans_local"] += local
         out["sampler_calls"] += calls
-        out["collision_guide"] += per_fresh * (calls - calls_local) + per_local * calls_local
+        out["guide_loop"] += per_fresh * (calls - calls_local) + per_local * calls_local
         out["grid_sdf_lookup"] += n_tiles.pop() * calls + 2 * grid_tiles
     return out
 
@@ -97,7 +96,7 @@ def pair(port_dir: str, jax_dir: Optional[str]) -> str:
                   "| agents | planner | success (port +- se; JAX) | collisions, all trials "
                   "| adherence | expansions, mean | root s, mean | plans fresh / local | "
                   "sampler calls fresh / local | local calls an expansion | "
-                  "launches guide / lookup | trials, port / JAX |",
+                  "launches guide loop / lookup | trials, port / JAX |",
                   "|---|---|---|---|---|---|---|---|---|---|---|---|"]
         for (n, planner), d in ours.items():
             rel = os.path.join(f"instance_name___{instance}", f"num_agents___{n}",
@@ -130,7 +129,7 @@ def pair(port_dir: str, jax_dir: Optional[str]) -> str:
                          f"{n_exp / len(trials):.1f} | {root_s / len(trials):.2f} | "
                          f"{k['plans_fresh']} / {k['plans_local']} | "
                          f"{k['sampler_calls'] - calls_local} / {calls_local} | {per_exp} | "
-                         f"{k['collision_guide']} / {k['grid_sdf_lookup']} | "
+                         f"{k['guide_loop']} / {k['grid_sdf_lookup']} | "
                          + ", ".join(pairs) + " |")
         lines.append("")
     return "\n".join(lines)

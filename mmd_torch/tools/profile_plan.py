@@ -8,27 +8,30 @@
 Plans EnvEmptyNoWait2D pair 0 of the 10-agent circle at full width (B=64,
 H=64, 25+1 steps, 14 guided steps x 20 guide iterations) after one warm-up
 plan of each path, then prints the card's name and power limit and one JSON
-line. Two paths are measured in turns: "kernel", the port as it runs, and
-"plain", the same plan with the collision guide's wrapper routed to its
-plain version (the guide's autograd code over the grid-SDF lookup kernel)
-for that plan only.
-- plan_s: host-clock seconds of 8 plans in the order plain, kernel, kernel,
-  plain, twice (each ends in a device sync), by path
+line. Two paths are measured in turns: "kernel", the port as it runs (one
+guide-loop launch a guided step), and "per_iteration", the same plan with
+each guided step's 20 guide iterations run one `guide_gradient` (with its
+collision-guide kernel) and `hard.apply` at a time, as the port ran them
+before the guide-loop kernel, for that plan only.
+- plan_s: host-clock seconds of 8 plans in the order per_iteration,
+  kernel, kernel, per_iteration, twice (each ends in a device sync), by
+  path
 - paths[path]: one plan traced with torch.profiler: busy_s (union of
-  kernel intervals), kernels (device events) per plan, kernels per guide
-  call (one guide_gradient traced alone), idle_share = 1 - busy_s / the
+  kernel intervals), kernels (device events) per plan, kernels per guided
+  step's guide loop (one traced alone), idle_share = 1 - busy_s / the
   path's median untraced plan_s, and idle_share_traced, which divides by
   the traced plan's wall time instead (the profiler lengthens it)
 - port_kernels: each port kernel's launches and device time by kernel name
-  in the kernel path's traced plan
+  in each path's traced plan
 - part_ms: CUDA-event times of the plan's parts alone (wrappers included):
-  one UNet forward, one guide_gradient of each path, one collision-guide
-  call and its plain version, one grid lookup at the finalize's shape, one
-  finalize
+  one UNet forward, a guided step's guide loop by the kernel, by its plain
+  version and by the per-iteration loop, one guide_gradient, one
+  collision-guide call and its plain version, one grid lookup at the
+  finalize's shape, one finalize
 - top: the 8 kernels with the most device time in the kernel path's plan
-- build_s: host seconds to build both CUDA sources into empty directories,
-  one nvcc after the other ("serial") and both started together
-  ("parallel", as chip_smoke.py builds them), in turns, twice each
+- build_s: host seconds to build the three CUDA sources into empty
+  directories, one nvcc after the other ("serial") and all started
+  together ("parallel", as chip_smoke.py builds them), in turns, twice each
 
 With --team it plans the 10-robot circle of EnvEmptyNoWait2D with
 `PrioritizedPlanning` (or, with --planner XECBS, the XECBS search of
@@ -57,10 +60,11 @@ JSON line:
 - part_ms: CUDA-event ms of agent 0's parts: the UNet step batched over its
   3 tiles (one forward over the stacked parameters, (3, 64, 64, 4)) and
   per tile (3 forwards one after the other), one guide_gradient over the 3
-  tiles, one collision-guide call at (3, 64, 64, 4), one guided step
-  (forward, 20 guide calls, noise, seams); part_kernels: kernels in one
-  traced call of each but the collision guide; agent0_plan_s: its fresh
-  and local plans, 4 each in turns (host clock)
+  tiles, one collision-guide call at (3, 64, 64, 4), one guide-loop call
+  (20 iterations) at (3, 64, 64, 4), one guided step (forward, the guide
+  loop, noise, seams); part_kernels: kernels in one traced call of each
+  but the two kernels; agent0_plan_s: its fresh and local plans, 4 each
+  in turns (host clock)
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -79,8 +83,10 @@ import torch
 
 from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
 from mmd_torch.costs import guide
-from mmd_torch.costs.guide import GuideData, collision_guide_plain, guide_gradient
+from mmd_torch.costs.guide import GuideData, collision_guide_plain, guide_gradient, \
+    guide_iterations, guide_loop, guide_loop_plain
 from mmd_torch.ops import collision_guide as cg
+from mmd_torch.ops import guide_loop as gl
 from mmd_torch.ops import sdf_kernel
 from mmd_torch.ops.build import BUILD_DIR, build_shared_libraries, load_kernels
 from mmd_torch.ops.sdf_kernel import grid_lookup
@@ -90,24 +96,27 @@ from mmd_torch.utils.interp import interpolate_traj_via_points
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 TEAM_AGENTS = 10  # the 10-robot circle of bench.py
 # Port kernels by the name the profiler gives their device events.
-PORT_KERNELS = {"collision_guide": "collision_guide_kernel",
+PORT_KERNELS = {"guide_loop": "guide_loop_kernel",
+                "collision_guide": "collision_guide_kernel",
                 "grid_sdf_lookup": "grid_sdf_lookup_kernel"}
 
 
 @contextlib.contextmanager
-def plain_collision():
-    """Route the guide's collision terms on the card to their plain version."""
-    guide.collision_guide = collision_guide_plain
+def per_iteration():
+    """Route the sampler's guide loops on the card to `guide_iterations`
+    (one `guide_gradient`, its collision terms by the collision-guide
+    kernel, and `hard.apply` an iteration)."""
+    guide.guide_loop_cuda = guide_iterations
     try:
         yield
     finally:
-        guide.collision_guide = cg.collision_guide
+        guide.guide_loop_cuda = gl.guide_loop_cuda
 
 
 def build_seconds() -> dict:
-    """Both sources built into empty directories, serially and together, in
+    """The sources built into empty directories, serially and together, in
     the order serial, parallel, parallel, serial."""
-    sources = [sdf_kernel.SOURCE, cg.SOURCE]
+    sources = [sdf_kernel.SOURCE, cg.SOURCE, gl.SOURCE]
     out, root = {"serial": [], "parallel": []}, BUILD_DIR / f"profile-{os.getpid()}"
     try:
         for n, how in enumerate(("serial", "parallel", "parallel", "serial")):
@@ -275,6 +284,7 @@ def profile_tiles(card: str, planner: str) -> dict:
     # Agent 0's parts.
     noise = p0.draw_noise()
     x = noise.x_T
+    n_guide = p0.cfg.n_guide_steps
     tb = torch.full((x.shape[1],), 7, dtype=torch.int64, device="cuda")
     gds = p0._guide_data(*p0._route_constraints(None))
     u = p0.normalizer.unnormalize(x)
@@ -293,6 +303,8 @@ def profile_tiles(card: str, planner: str) -> dict:
             "guide_gradient": _event_ms(lambda: guide_gradient(x, gds, p0.guide_cfg), 50),
             "collision_guide": _event_ms(lambda: cg.collision_guide(u, p0.scene, p0.guide_cfg),
                                          200),
+            "guide_loop": _event_ms(lambda: gl.guide_loop_cuda(
+                x, gds, p0.hard_conds, p0.guide_cfg, n_guide), 200),
             "guided_step": _event_ms(guided_step, 5),
         }
         kernels = {"unet_step_batched": len(_traced(lambda: p0.model(x, tb), host=False)[1]),
@@ -348,12 +360,12 @@ def main() -> int:
     planner = load_planner(os.path.join(ROOT, "data_trained_models"),
                            os.path.join(ROOT, "data_trajectories"), "EnvEmptyNoWait2D",
                            starts[0], goals[0], "cuda")
-    paths = {"kernel": contextlib.nullcontext, "plain": plain_collision}
+    paths = {"kernel": contextlib.nullcontext, "per_iteration": per_iteration}
     for path in paths.values():
         with path():
             planner()  # warm-up
-    plan_s = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain") * 2:
+    plan_s = {"kernel": [], "per_iteration": []}
+    for name in ("per_iteration", "kernel", "kernel", "per_iteration") * 2:
         with paths[name]():
             t0 = time.perf_counter()
             planner()
@@ -363,17 +375,19 @@ def main() -> int:
     x = planner.draw_noise().x_T
     gd = GuideData(scene=planner.scene, normalizer=planner.dataset.normalizer,
                    constraints=planner._pack(None)[0])
+    hard, gcfg, n_guide = planner.hard_conds, planner.guide_cfg, cfg.n_guide_steps
     report, events = {}, {}
     for name, path in paths.items():
         with path():
             traced_s, plan_events = _traced(planner)
-            _, guide_events = _traced(lambda: guide_gradient(x, gd, planner.guide_cfg))
+            _, guide_events = _traced(lambda: guide_loop(x, gd, hard, gcfg, n_guide))
         busy_s = _busy_us(plan_events) * 1e-6 if plan_events else None  # None: not measured
         untraced = statistics.median(plan_s[name])
         report[name] = {
             "busy_s": busy_s, "traced_plan_s": traced_s,
             "kernels_per_plan": len(plan_events),
-            "kernels_per_guide_call": len(guide_events),
+            "kernels_per_guided_step_loop": len(guide_events),
+            "port_kernels": _port_kernels(plan_events),
             "idle_share": None if busy_s is None else 1.0 - busy_s / untraced,
             "idle_share_traced": None if busy_s is None else 1.0 - busy_s / traced_s,
         }
@@ -392,15 +406,15 @@ def main() -> int:
     tables = [(planner.scene.grid.values, planner.scene.grid.grads),
               (planner.scene.extra_grid.values, planner.scene.extra_grid.grads)]
 
-    def plain_guide():
-        with plain_collision():
-            guide_gradient(x, gd, planner.guide_cfg)
-
     with torch.no_grad():
         part_ms = {
             "unet_forward": _event_ms(lambda: planner.model(x, tb), 26),
+            "guide_loop": _event_ms(lambda: gl.guide_loop_cuda(x, gd, hard, gcfg, n_guide), 200),
+            "guide_loop_plain": _event_ms(lambda: guide_loop_plain(x, gd, hard, gcfg, n_guide),
+                                          5),
+            "guide_loop_per_iteration": _event_ms(
+                lambda: guide_iterations(x, gd, hard, gcfg, n_guide), 5),
             "guide_gradient": _event_ms(lambda: guide_gradient(x, gd, planner.guide_cfg), 50),
-            "guide_gradient_plain": _event_ms(plain_guide, 50),
             "collision_guide": _event_ms(
                 lambda: cg.collision_guide(u, planner.scene, planner.guide_cfg), 200),
             "collision_guide_plain": _event_ms(
@@ -417,7 +431,8 @@ def main() -> int:
         "plan_s": plan_s, "paths": report, "port_kernels": port, "part_ms": part_ms,
         "build_s": build_s,
         "per_plan": {"unet_forwards": len(cfg.step_indices()),
-                     "guide_gradients": cfg.n_guided_steps() * cfg.n_guide_steps},
+                     "guide_loops": cfg.n_guided_steps(),
+                     "guide_iterations": cfg.n_guided_steps() * cfg.n_guide_steps},
         "top": [[name[:60], round(us / 1e3, 3)] for name, us in top],
         "device": torch.cuda.get_device_name(0)}))
     return 0

@@ -1,7 +1,10 @@
 """The port's whole CBS, ECBS, XCBS and XECBS searches on the CPU.
 
-A dense 4-robot circle of EnvEmptyNoWait2D (radius 0.3, as
-tests/test_greedy_equivalence.py:58-62 makes its instance), on the real
+A dense 4-robot circle of EnvEmptyNoWait2D (radius 0.25; JAX's
+tests/test_greedy_equivalence.py:58-62 makes its 6-robot instance at 0.3,
+where this 4-robot one is too sparse: XECBS's soft root solves it with
+no expansion on most planner seeds, so that whether it expands once
+turned on the guide's float32 rounding), on the real
 checkpoint at B=8 and full depth (25+1 DDPM steps, 14 guided steps x 20
 guide iterations), in JAX's default order: the root and a greedy chain
 from it, then per popped node a chain, else `expand`. A whole search is
@@ -29,7 +32,7 @@ from mmd_torch.planners.single_agent.mpd import load_planners
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-N_AGENTS, RADIUS, B = 4, 0.3, 8
+N_AGENTS, RADIUS, B = 4, 0.25, 8
 
 
 @pytest.mark.parametrize("name,is_ecbs,is_xcbs", [

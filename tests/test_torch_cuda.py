@@ -10,7 +10,10 @@ float32 index arithmetic and read the same cells. So must the
 collision-guide kernel equal its plain version (the guide's autograd code,
 run on the card over the plain torch lookup): it does the same float32 operations in the same order,
 the clip's norm summed as (a^2 + b^2) + (c^2 + d^2), as torch's CUDA
-reduction sums four channels.
+reduction sums four channels. So must the guide-loop kernel equal
+`guide_loop_plain`, which spells out its float32 operations (and its
+fused multiply-adds through float64) one by one; the sampler's paths then
+launch it once a guided step and the collision guide not at all.
 """
 import dataclasses
 import os
@@ -23,18 +26,21 @@ import torch
 from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
 from mmd_torch.costs import guide as guide_module
 from mmd_torch.costs.constraints import empty_constraint_set
-from mmd_torch.costs.guide import GuideConfig, GuideData, collision_guide_plain, guide_gradient
+from mmd_torch.costs.guide import GuideConfig, GuideData, collision_guide_plain, guide_gradient, \
+    guide_loop_plain
 from mmd_torch.datasets.normalization import LimitsNormalizer
 from mmd_torch.envs.envs import make_env
 from mmd_torch.envs.grid_sdf import grid_sdf_pair
 from mmd_torch.ops import sdf_kernel
 from mmd_torch.ops.build import load_kernels
 from mmd_torch.ops.collision_guide import collision_guide
+from mmd_torch.ops.guide_loop import guide_loop_cuda, staging_bytes
 from mmd_torch.ops.sdf_kernel import grid_lookup, grid_lookup_cuda, grid_lookup_plain
 from mmd_torch.parallel.team import PrioritizedTeam, plan_prioritized_scan
 from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
 from mmd_torch.planners.single_agent.mpd import load_planners
-from mmd_torch.tools.guide_cases import HINGE_CUTOFF, tied_scene, waypoints
+from mmd_torch.tools.guide_cases import HINGE_CUTOFF, LOOP_CASES, loop_case, tied_scene, \
+    waypoints
 from mmd_torch.tools.row_chunked import RowChunked
 
 pytestmark = pytest.mark.gpu
@@ -44,6 +50,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+
+
+def _counts():
+    """(guide loops, collision guides, lookups) launched so far."""
+    return guide_loop_cuda.launches, collision_guide.launches, grid_lookup.launches
+
+
+def _grew(before):
+    return tuple(a - b for a, b in zip(_counts(), before))
+
+
+def _plain_kernels(monkeypatch):
+    """Route every kernel's wrapper to its plain version."""
+    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
+    monkeypatch.setattr(guide_module, "collision_guide", collision_guide_plain)
+    monkeypatch.setattr(guide_module, "guide_loop_cuda", guide_loop_plain)
 
 
 def query_points(n: int, grid, seed: int) -> np.ndarray:
@@ -166,10 +188,10 @@ def test_guide_gradient_makes_one_collision_launch_and_no_lookup():
 
 def test_pp_team_pass_launches_per_agent_syncs_nothing_and_replays_exactly(monkeypatch):
     """The PP device pass at 3 agents, B=8, 2 guide iterations a step: each
-    agent launches the collision guide once per guide call and the lookup
-    once, the loop makes no host sync (torch's sync debug mode reports
-    none), and with both kernels routed to their plain versions the pass
-    is equal."""
+    agent launches the guide loop once per guided step, no collision guide
+    and the lookup once, the loop makes no host sync (torch's sync debug
+    mode reports none), and with every kernel routed to its plain version
+    the pass is equal."""
     _need_card()
     starts, goals = get_start_goal_pos_circle(3)
     planners = load_planners(os.path.join(ROOT, "data_trained_models"),
@@ -181,7 +203,7 @@ def test_pp_team_pass_launches_per_agent_syncs_nothing_and_replays_exactly(monke
     team = PrioritizedTeam.of(planners, pp.margin)
     plan_prioritized_scan(team, pp._team_noise())  # builds and warms up
     noise = pp._team_noise()
-    before = (collision_guide.launches, grid_lookup.launches)
+    before = _counts()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -191,12 +213,9 @@ def test_pp_team_pass_launches_per_agent_syncs_nothing_and_replays_exactly(monke
             torch.cuda.set_sync_debug_mode("default")
     assert not [w for w in caught
                 if "called a synchronizing CUDA operation" in str(w.message)]
-    calls = planners[0].cfg.n_guided_steps() * planners[0].cfg.n_guide_steps
-    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
-        (3 * calls, 3)
+    assert _grew(before) == (3 * planners[0].cfg.n_guided_steps(), 0, 3)
     assert len(out.clock.seconds()) == 3
-    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
-    monkeypatch.setattr(guide_module, "collision_guide", collision_guide_plain)
+    _plain_kernels(monkeypatch)
     plain = plan_prioritized_scan(team, noise)
     assert torch.equal(out.trajs, plain.trajs) and torch.equal(out.ix, plain.ix)
 
@@ -208,12 +227,12 @@ def _sync_warnings(caught):
 def test_xecbs_search_launches_by_plan_kind_syncs_only_to_read_and_replays_exactly(
         monkeypatch):
     """A 3-agent XECBS search on the dense circle (B=8, 2 guide iterations a
-    step, the bfloat16 UNet): the collision guide launches once per guide
-    call of each sampler call (fresh and local, by the search's own count;
-    a chain step's two children are one call) and the lookup once per call;
-    every host sync of the search comes from
-    `cbs.to_host`; with the generators restored and both kernels routed to
-    their plain versions the search is equal."""
+    step, the bfloat16 UNet): the guide loop launches once per guided step
+    of each sampler call (fresh and local, by the search's own count; a
+    chain step's two children are one call), the collision guide never and
+    the lookup once per call; every host sync of the search comes from
+    `cbs.to_host`; with the generators restored and every kernel routed to
+    its plain version the search is equal."""
     _need_card()
     import inspect
 
@@ -230,7 +249,7 @@ def test_xecbs_search_launches_by_plan_kind_syncs_only_to_read_and_replays_exact
     CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True).plan()  # warm-up
     kept = [p._generator.get_state() for p in planners]
     search = CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
-    before = (collision_guide.launches, grid_lookup.launches)
+    before = _counts()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -246,14 +265,13 @@ def test_xecbs_search_launches_by_plan_kind_syncs_only_to_read_and_replays_exact
     cfg, t = planners[0].cfg, search.timing
     local = t["sampler_calls_local"]
     fresh = t["sampler_calls"] - local
-    want = (2 * (cfg.n_guided_steps() * fresh + cfg.n_guided_steps(3) * local), fresh + local)
-    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == want
+    want = (cfg.n_guided_steps() * fresh + cfg.n_guided_steps(3) * local, 0, fresh + local)
+    assert _grew(before) == want
     assert t["plans_fresh"] >= 3 and len(paths) == 3
     final = search.final
     for p, state in zip(planners, kept):
         p._generator.set_state(state)
-    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
-    monkeypatch.setattr(guide_module, "collision_guide", collision_guide_plain)
+    _plain_kernels(monkeypatch)
     replay = CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True)
     _, n_exp2, status2, _ = replay.plan()
     assert (n_exp2, status2) == (n_exp, status)
@@ -265,8 +283,9 @@ def test_greedy_chain_on_the_card_syncs_only_to_read(monkeypatch):
     """One greedy chain on the card (XECBS, 3-agent dense circle, B=8, 2
     guide iterations a step) from the split root: every host sync of the
     call comes from `cbs.to_host`, one flag read a step and the records'
-    read; the collision guide launches once per guide call of each step's
-    sampler call (both children) and the lookup once per call."""
+    read; the guide loop launches once per guided step of each step's
+    sampler call (both children), the collision guide never and the lookup
+    once per call."""
     _need_card()
     import inspect
 
@@ -285,7 +304,7 @@ def test_greedy_chain_on_the_card_syncs_only_to_read(monkeypatch):
     status, root = search._plan_root(lambda: False)
     assert root.has_paths and root.n_conflicts > 0
     search.greedy_audit = []
-    before = (collision_guide.launches, grid_lookup.launches)
+    before = _counts()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -304,8 +323,7 @@ def test_greedy_chain_on_the_card_syncs_only_to_read(monkeypatch):
     assert children >= 2 and children == 2 * calls  # a step's two children, one call
     assert t["device_greedy_calls"] <= calls + 1
     cfg = planners[0].cfg
-    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
-        (2 * cfg.n_guided_steps(3) * calls, calls)
+    assert _grew(before) == (cfg.n_guided_steps(3) * calls, 0, calls)
 
 
 @pytest.mark.parametrize("shape", [(64, 379), (640, 379)], ids=["plan", "batched"])
@@ -329,8 +347,9 @@ def test_lookup_equals_plain_at_the_finalize_shapes(shape):
 
 def test_batched_call_launches_once_and_matches_looped_steps():
     """Three agents' fresh plans as one sampler call on the card (B=8, 2
-    guide iterations a step): one collision-guide launch a guide call and
-    one lookup for all three; each DDPM step of its chain, with the UNet
+    guide iterations a step): one guide-loop launch a guided step, no
+    collision guide and one lookup for all three; each DDPM step of its
+    chain, with the UNet
     run 8 rows at a time (cuDNN chooses its convolution algorithm by batch
     size), against the agent's single step fed the same x, within 1e-3."""
     _need_card()
@@ -348,11 +367,10 @@ def test_batched_call_launches_once_and_matches_looped_steps():
     p0, cfg = team.p0, planners[0].cfg
     g = torch.Generator(device="cuda").manual_seed(0)
     noise_l = [SamplerNoise.draw(cfg, g, "cuda") for _ in range(3)]
-    before = (collision_guide.launches, grid_lookup.launches)
+    before = _counts()
     res = team.plan_problems(noise_l)
     assert res.trajs_final.shape[:2] == (3, 8)
-    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
-        (cfg.n_guided_steps() * cfg.n_guide_steps, 1)
+    assert _grew(before) == (cfg.n_guided_steps(), 0, 1)
     hard = HardConds(mask=team.hard_team.mask, values=team.hard_team.values[:, None])
     gd = GuideData(scene=p0.scene, normalizer=p0.dataset.normalizer,
                    constraints=team.base_cset)
@@ -432,8 +450,9 @@ def _tiles_trial(planner_class: str, n_agents: int = 2):
 
 
 def test_ensemble_plan_launches_once_per_guide_call_for_all_tiles():
-    """A 3-tile plan, fresh and local: one collision-guide launch per guide
-    call for all tiles and one lookup per tile; the seams hold."""
+    """A 3-tile plan, fresh and local: one guide-loop launch per guided step
+    for all tiles, no collision guide and one lookup per tile; the seams
+    hold."""
     _need_card()
     from mmd_torch.common.experiences import PathBatchExperience
     from mmd_torch.models.ensemble import seam_residual
@@ -443,11 +462,9 @@ def test_ensemble_plan_launches_once_per_guide_call_for_all_tiles():
     cfg = p.cfg
     for local in (False, True):
         exp = PathBatchExperience(p().trajs_final) if local else None
-        before = (collision_guide.launches, grid_lookup.launches)
+        before = _counts()
         out = p(experience=exp)
-        calls = cfg.n_guided_steps(3 if local else None) * cfg.n_guide_steps
-        assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == \
-            (calls, p.n_tiles)
+        assert _grew(before) == (cfg.n_guided_steps(3 if local else None), 0, p.n_tiles)
         assert out.trajs_final.shape == (8, 3 * 64, 4)
         assert float(seam_residual(p.local_seeds(out.trajs_iters[-1]), p.cc)) <= 1e-6
 
@@ -474,7 +491,7 @@ def test_multi_tile_xecbs_syncs_only_to_read_and_replays_exactly(monkeypatch):
     search().plan()  # warm-up
     kept = [p._generator.get_state() for p in trial.planners]
     team = search()
-    before = (collision_guide.launches, grid_lookup.launches)
+    before = _counts()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -488,15 +505,13 @@ def test_multi_tile_xecbs_syncs_only_to_read_and_replays_exactly(monkeypatch):
                      and first <= w.lineno < first + len(lines))]
     assert not stray, stray
     cfg, t = trial.planners[0].cfg, team.timing
-    want = (2 * (cfg.n_guided_steps() * t["plans_fresh"]
-                 + cfg.n_guided_steps(3) * t["plans_local"]),
-            3 * (t["plans_fresh"] + t["plans_local"]))
-    assert (collision_guide.launches - before[0], grid_lookup.launches - before[1]) == want
+    want = (cfg.n_guided_steps() * t["plans_fresh"] + cfg.n_guided_steps(3) * t["plans_local"],
+            0, 3 * (t["plans_fresh"] + t["plans_local"]))
+    assert _grew(before) == want
     final = team.final
     for p, state in zip(trial.planners, kept):
         p._generator.set_state(state)
-    monkeypatch.setattr(sdf_kernel, "grid_lookup_cuda", grid_lookup_plain)
-    monkeypatch.setattr(guide_module, "collision_guide", collision_guide_plain)
+    _plain_kernels(monkeypatch)
     replay = search()
     _, n_exp2, status2, _ = replay.plan()
     assert (n_exp2, status2) == (n_exp, status)
@@ -675,3 +690,63 @@ def test_bench_kernels_matches_at_both_sizes():
 
     rows = bench_kernels.bench(n_iter=5)
     assert [r["points"] for r in rows] == [4096, 65536] and all(r["match"] for r in rows)
+
+
+# ------------------------------------------------------------ guide loop
+@pytest.mark.parametrize("name", LOOP_CASES)
+def test_guide_loop_equals_plain(name, monkeypatch):
+    """The guide-loop kernel against `guide_loop_plain` (its lookup in plain
+    torch too) on the card, 20 iterations in one launch: exactly equal, in
+    every case of `guide_cases.LOOP_CASES` (both maps, edge waypoints,
+    constraints, soft paths, 10 problems, 3 tiles, H = 2, 64, 128)."""
+    _need_card()
+    load_kernels()
+    x, gd, hard, cfg = loop_case(name, "cuda", B=16)
+    before = _counts()
+    got = guide_loop_cuda(x, gd, hard, cfg, 20)
+    assert _grew(before) == (1, 0, 0)
+    _plain_kernels(monkeypatch)
+    want = guide_loop_plain(x, gd, hard, cfg, 20)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert float((got - x).abs().max()) > 1e-3
+
+
+def test_guide_loop_refuses_what_it_does_not_take():
+    """A CPU tensor, a non-float32 or strided x and a staging past 227 KB
+    raise a ValueError, with no launch."""
+    _need_card()
+    load_kernels()
+    x, gd, hard, cfg = loop_case("soft_paths", "cuda", B=8)
+    before = _counts()
+    for bad in (x.cpu(), x.double(), torch.zeros(8, 64, 8, device="cuda")[..., :4]):
+        with pytest.raises(ValueError):
+            guide_loop_cuda(bad, gd, hard, cfg, 20)
+    big = dataclasses.replace(gd.soft_paths, points=torch.zeros(400, 64, 2, device="cuda"),
+                              mask=torch.ones(400, 64, device="cuda"))
+    assert staging_bytes(64, 3, 2, 400) > 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        guide_loop_cuda(x, dataclasses.replace(gd, soft_paths=big), hard, cfg, 20)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("sampler", ["ddpm", "ddim"])
+def test_mpd_plan_launches_one_guide_loop_a_guided_step_and_one_lookup(sampler, monkeypatch):
+    """A full-width MPD plan on EnvConveyor2D: 14 guide loops (DDIM: 3), no
+    collision guide, one lookup; the same plan with every kernel routed to
+    its plain version is equal."""
+    _need_card()
+    load_kernels()
+    from mmd_torch.planners.single_agent.mpd import load_planner
+
+    planner = load_planner(os.path.join(ROOT, "data_trained_models"),
+                           os.path.join(ROOT, "data_trajectories"), "EnvConveyor2D",
+                           (-0.8, 0.0), (0.8, 0.0), "cuda")
+    planner.cfg = dataclasses.replace(planner.cfg, sampler=sampler)
+    noise = planner.draw_noise()
+    before = _counts()
+    out = planner(noise=noise)
+    assert _grew(before) == ({"ddpm": 14, "ddim": 3}[sampler], 0, 1)
+    _plain_kernels(monkeypatch)
+    assert torch.equal(planner(noise=noise).trajs_final, out.trajs_final)

@@ -468,10 +468,10 @@ def test_pair_sweeps_puts_each_trial_beside_jaxs(tmp_path, monkeypatch):
     text = pair_sweeps.pair(str(tmp_path / "port" / "sweep"), str(tmp_path / "jax" / "sweep"))
     (row,) = [line for line in text.splitlines() if line.startswith("| 2 | PP |")]
     # 2 trials of 2 fresh and 1 local plans, each plan a sampler call of its
-    # own, and no expansion: 2 x (2 x 280 + 80) guide launches, 2 x (3 calls
-    # x 1 tile + 2 checks x 1 grid tile) lookups.
+    # own, and no expansion: 2 x (2 x 14 + 4) guide-loop launches (one a
+    # guided step), 2 x (3 calls x 1 tile + 2 checks x 1 grid tile) lookups.
     assert row == ("| 2 | PP | 1.00 +- 0.00; 0.50 | 0.00; 2.00 | 0.0000; 0.0000 | 0.0 | "
-                   "0.00 | 4 / 2 | 4 / 2 | - | 1280 / 10 | SUCCESS/SUCCESS, SUCCESS/FAIL_COLL |")
+                   "0.00 | 4 / 2 | 4 / 2 | - | 64 / 10 | SUCCESS/SUCCESS, SUCCESS/FAIL_COLL |")
     alone = pair_sweeps.pair(str(tmp_path / "port" / "sweep"), None)
     assert "| 2 | XECBS | 1.00 +- 0.00; - | 0.00; - |" in alone and "SUCCESS/-" in alone
 
@@ -568,25 +568,29 @@ def test_clis_take_the_jax_scripts_flags_and_defaults(script, tool):
 
 
 def _count_kernel_calls(monkeypatch):
-    """Count the plain collision guide and lookup calls that stand for
-    kernel launches on the card: the outermost guide call (one launch for
-    all tiles) and the lookups made outside it."""
-    counts, depth = {"collision_guide": 0, "grid_sdf_lookup": 0}, [0]
+    """Count the plain versions' calls that stand for kernel launches on the
+    card: the outermost guide loop (one launch a guided step for all
+    tiles), a collision guide and the lookups made outside it."""
+    counts, depth = {"guide_loop": 0, "collision_guide": 0, "grid_sdf_lookup": 0}, [0]
+    plain_loop = guide.guide_loop_plain
     plain_guide, plain_lookup = guide.collision_guide_plain, grid_sdf.grid_lookup
 
-    def counted_guide(*a, **k):
-        counts["collision_guide"] += depth[0] == 0
-        depth[0] += 1
-        try:
-            return plain_guide(*a, **k)
-        finally:
-            depth[0] -= 1
+    def counted(name, fn):
+        def call(*a, **k):
+            counts[name] += depth[0] == 0
+            depth[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+        return call
 
     def counted_lookup(*a, **k):
         counts["grid_sdf_lookup"] += depth[0] == 0
         return plain_lookup(*a, **k)
 
-    monkeypatch.setattr(guide, "collision_guide_plain", counted_guide)
+    monkeypatch.setattr(guide, "guide_loop_plain", counted("guide_loop", plain_loop))
+    monkeypatch.setattr(guide, "collision_guide_plain", counted("collision_guide", plain_guide))
     monkeypatch.setattr(grid_sdf, "grid_lookup", counted_lookup)
     return counts
 

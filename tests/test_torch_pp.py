@@ -24,7 +24,7 @@ What is held, and why so:
   the size of JAX's own spread, and far outside any rounding-level
   tolerance, which does not hold even JAX against itself. So a constrained agent is held step by step, each DDPM step fed
   JAX's chain (FIRST_STEP_TOL at the first step, STEP_TOL after it,
-  measured <= 6.8e-5), then the finalize and the choice on JAX's own
+  measured <= 6.9e-5), then the finalize and the choice on JAX's own
   result, which must give JAX's index exactly.
 - The chained pass through `PrioritizedPlanning.plan` is held to the
   outcome: the device pass is taken, agent 0 as above, the same status
