@@ -231,6 +231,25 @@ this file. Phases, one short line each:
    (waypoints in collision and free particles before and after; the plan's
    free samples; the arm's free particles, at least one), and the lookup's
    device time, wrapper and plain ms and bound at each run's shape
+18. rest of the port (after phase 16, before the report): (a) the UNet's
+   optional modes at the flagship's width (32 x (1, 2, 4), B = 64, H = 64,
+   state 4, context 32), self_attention off and on x each
+   conditioning_type, parameters from a fixed generator: a float32 forward
+   on the card against the CPU's within CPU_TOL, its ms by CUDA events;
+   the bfloat16 twin refuses every optional mode (ValueError), and on the
+   plain UNet it is held against the CPU's bf16 twin at BF16_TOL and
+   BF16_MEAN_TOL; (b) `sample_gp_prior` at B = 64, H = 64 on one set of
+   draws, card against CPU within twice the CPU's own float32-against-
+   float64 gap, measured in the run; (c) the SDF and gradient fields of
+   `viz` (n = 200 -> (40000, 2) and n = 40 -> (1600, 2)) on EnvConveyor2D
+   and EnvEmptyNoWait2D through the lookup kernel, one launch each, exactly
+   equal to the plain lookup, and the kernel's device us a launch at
+   (40000, 2) from a profiler trace with its byte bound; (d) one UNet
+   forward's FLOPs at B = 64, the card's dense bf16 peak, and phase 8's
+   XECBS search's unet_evals, model_gflops and mfu_pct (its wall seconds,
+   no new search); the kernel build's compile seconds of phase 2 (> 0) and
+   of one later plan, sync-free, (0.0); (e) a profiler trace of one plan,
+   sync-free, whose Chrome trace file must name the guide-loop kernel
 11. one JSON line of kernel numbers (launches: the sum over the paths,
    each counted from 0 just before it and read just after; the sampler's
    paths launch the guide loop and no collision guide, phase 16's
@@ -238,7 +257,8 @@ this file. Phases, one short line each:
    the
    four plans of phase 5, the team plan of
    phase 7, the two searches of phase 8, phase 9's two plans, search and PP team,
-   phase 10's, phases 12, 13 and 14's, phase 15's two and phase 16's six;
+   phase 10's, phases 12, 13 and 14's, phase 15's two, phase 16's six and
+   phase 18's fields and plans;
    ms, plain and bound: the collision
    guide at phase 9's stacked (3, 64, 64, 4), with phase 4's (64, 64, 4)
    beside them; the guide loop at phase 17's (64, 64, 4), its other shapes
@@ -314,6 +334,17 @@ TEAM_AGENTS = 10  # the 10-robot circle of bench.py
 # forward differs from its float32 one by 0.7% of the largest |eps| on the
 # CPU (tests/test_torch_unet.py). Held at 2% of the largest |eps|.
 BF16_TOL = 2e-2
+# The bfloat16 twin against its CPU self on the same input: both round
+# every op to bf16 in their own summation order; held at the mean band
+# that tests/test_torch_unet.py holds the port's bf16 forward to flax's at.
+BF16_MEAN_TOL = 5e-3
+# Phase 18: the UNet's optional modes at the flagship's width (B, H, D, E);
+# GP-prior draws at the reference's 5 s over H waypoints; the fields of
+# viz at PlanningVisualizer's defaults (n = 200: (40000, 2); n = 40).
+UNET_MODES_SHAPE = (64, 64, 4, 32)
+UNET_MODES_SEED = 18
+GP_DURATION, GP_SEED = 5.0, 18
+VIZ_SDF_N, VIZ_GRAD_N = 200, 40
 TILES_INSTANCE = "EnvTestTwoByTwoRobotPlanarDiskRandom"
 TILES_AGENTS = 4
 STAGGER_DT = 10
@@ -584,6 +615,7 @@ def main() -> int:
     from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
     from mmd_torch.planners.multi_agent.prioritized_planning import PrioritizedPlanning
     from mmd_torch.tools.guide_cases import HINGE_CUTOFF, tied_scene, waypoints
+    from mmd_torch.utils.profiling import compile_time_monitor
 
     dev = "cuda"
 
@@ -597,9 +629,11 @@ def main() -> int:
 
     phase("build")
     t0 = time.perf_counter()
-    load_kernels()
+    with compile_time_monitor() as build_compile:
+        load_kernels()
     print(f"build: grid_sdf.cu, collision_guide.cu and guide_loop.cu with {find_nvcc()}, one "
-          f"nvcc each, all started together, in {time.perf_counter() - t0:.2f} s")
+          f"nvcc each, all started together, in {time.perf_counter() - t0:.2f} s "
+          f"(compile_time_monitor: {build_compile['compile_s']:.3f} s)")
 
     phase("kernel")
     lookup_err = 0.0
@@ -846,6 +880,9 @@ def main() -> int:
     phase("baselines")
     baselines = run_baselines_phase(dev)
 
+    phase("rest")
+    rest = run_rest_phase(dev, smi, cbs["summary"], build_compile["compile_s"])
+
     phase("report")
     floor_us = launch_floor_us()
     print(f"report: launch floor (a 1-element fill_) {floor_us:.4f} us on the device")
@@ -860,6 +897,7 @@ def main() -> int:
         by_path["experiments"] = experiments["launches"][name]
         by_path.update({k: v[name] for k, v in speculative["launches"].items()})
         by_path.update({k: v[name] for k, v in baselines["launches"].items()})
+        by_path.update({k: v[name] for k, v in rest["launches"].items()})
         # Every path of the run, each counted from 0 just before it and read
         # just after: the sampler's guide loops launch the guide-loop kernel;
         # phase 16's zoo-term plan, the one path whose guide runs its
@@ -872,13 +910,15 @@ def main() -> int:
     kernels = [{
         "name": "grid_sdf_lookup", "route": "cuda", "source": "mmd_torch/csrc/grid_sdf.cu",
         "replaces": sdf_kernel.REPLACES, **launches("grid_sdf_lookup"),
-        "max_abs_err": max(lookup_err, trained["lookup_err"], baselines["lookup_err"]),
+        "max_abs_err": max(lookup_err, trained["lookup_err"], baselines["lookup_err"],
+                           rest["lookup_err"]),
         "ms": lookup_ms,
         "plain_ms": lookup_plain_ms,
         "bound_ms": lookup_bound_ms, "bound_by": "bytes", "library_ms": None,
         "shapes": {str(list(shape)): {k: v for k, v in t.items()}
                    for shape, t in lookup_at.items()},
         "baseline_shapes": baselines["lookup_at"], "bench_kernels": baselines["bench_kernels"],
+        "viz_field": rest["lookup_at"],
     }, {
         "name": "collision_guide", "route": "cuda",
         "source": "mmd_torch/csrc/collision_guide.cu", "replaces": cg.REPLACES,
@@ -903,7 +943,7 @@ def main() -> int:
                       "train": trained["summary"], "eval": evaluated["summary"],
                       "datagen": generated["summary"], "experiments": experiments["summary"],
                       "speculative": speculative["summary"],
-                      "baselines": baselines["summary"],
+                      "baselines": baselines["summary"], "rest": rest["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3),
                       "deadline_s": DEADLINE_S}))
     print(f"report: the whole run took {time.perf_counter() - t_start:.1f} s of its "
@@ -2493,6 +2533,190 @@ def run_baselines_phase(dev):
     return {"launches": launches, "summary": summary, "lookup_at": lookup_at,
             "lookup_err": max(at["max_abs_err"] for at in lookup_at.values()),
             "bench_kernels": rows}
+
+
+def run_rest_phase(dev, card: str, xecbs: dict, build_compile_s: float):
+    """Phase 18 (module docstring): the UNet's optional modes, GP-prior
+    sampling, the fields of viz, the FLOP accounting and a profiler trace,
+    on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mmd_torch.common.multi_agent_utils import get_start_goal_pos_circle
+    from mmd_torch.costs.gp import sample_gp_prior
+    from mmd_torch.costs.guide import GuideData
+    from mmd_torch.envs.envs import make_env
+    from mmd_torch.models.temporal_unet import Bf16Unet, bf16_model, init_unet
+    from mmd_torch.ops import sdf_kernel
+    from mmd_torch.utils.flops import mfu_pct, unet_forward_flops
+    from mmd_torch.utils.profiling import compile_time_monitor, gpu_peak_flops, profiler_trace
+    from mmd_torch.viz.visualizer import field_grid, grad_sdf_field, sdf_field
+
+    t_phase = time.perf_counter()
+    summary, launches = {"card": card}, {}
+    B, H, D, E = UNET_MODES_SHAPE
+    rng = np.random.default_rng(UNET_MODES_SEED)
+    x = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 25, B))
+    ctx = torch.from_numpy(rng.standard_normal((B, E)).astype(np.float32))
+
+    # (a) the UNet's optional modes, float32, card against CPU.
+    modes = {}
+    for k, (attn, cond) in enumerate([(a, c) for a in (False, True)
+                                      for c in ("", "concatenate", "attention", "default")]):
+        cpu_net = init_unet(torch.Generator().manual_seed(UNET_MODES_SEED + k), state_dim=D,
+                            unet_input_dim=32, dim_mults=(1, 2, 4), device="cpu",
+                            self_attention=attn, conditioning_type=cond, context_dim=E).eval()
+        card_net = copy.deepcopy(cpu_net).to(dev)
+        args = (x, t) + ((ctx,) if cond else ())
+        card_args = tuple(a.to(dev) for a in args)
+        with torch.no_grad():
+            want_eps = cpu_net(*args)
+            got = card_net(*card_args)
+            err = float((got.cpu() - want_eps).abs().max())
+            ms = cuda_ms(lambda: card_net(*card_args), n_iter=50, n_warm=5)
+        name = f"self_attention={attn} conditioning_type={cond!r}"
+        print(f"rest: UNet {name} at {tuple(x.shape)}: max |card - cpu| {err:.3e} "
+              f"(tolerance {CPU_TOL}), max |eps| {float(want_eps.abs().max()):.3f}, "
+              f"{ms:.4f} ms a float32 forward on the card ({card})")
+        if not torch.isfinite(got).all() or got.shape != (B, H, D) or not err <= CPU_TOL:
+            raise RuntimeError(f"UNet {name}: card against CPU {err} > {CPU_TOL}")
+        entry = {"max_abs_err": err, "ms": ms}
+        if attn or cond:
+            try:
+                Bf16Unet(cpu_net)
+            except ValueError:
+                entry["bf16"] = "refused"
+            else:
+                raise RuntimeError(f"the bfloat16 twin accepted {name}")
+        else:
+            card_bf16, cpu_bf16 = bf16_model(card_net), bf16_model(cpu_net)
+            with torch.no_grad():
+                got16 = card_bf16(*card_args).cpu()
+                want16 = cpu_bf16(*args)
+                ms16 = cuda_ms(lambda: card_bf16(*card_args), n_iter=50, n_warm=5)
+            rel = float((got16 - want16).abs().max() / want16.abs().max())
+            mean = float((got16 - want16).abs().mean())
+            print(f"rest: bf16 UNet {name}: card against the CPU's bf16 twin max |diff| {rel:.4f} "
+                  f"of max |eps| (tolerance {BF16_TOL}), mean |diff| {mean:.5f} (tolerance "
+                  f"{BF16_MEAN_TOL}), {ms16:.4f} ms a forward")
+            if not (rel <= BF16_TOL and mean <= BF16_MEAN_TOL):
+                raise RuntimeError(f"bf16 UNet: card against CPU {rel} / {mean}")
+            entry["bf16"] = {"max_rel_err": rel, "mean_abs_err": mean, "ms": ms16}
+        modes[name] = entry
+    summary["unet_modes"] = modes
+
+    # (b) GP-prior sampling, card against CPU on one set of draws.
+    starts, goals = get_start_goal_pos_circle(TEAM_AGENTS)
+    start = torch.tensor([*starts[0], 0.0, 0.0])
+    goal = torch.tensor([*goals[0], 0.0, 0.0])
+    dt = GP_DURATION / (H - 1)
+    z = torch.from_numpy(np.random.default_rng(GP_SEED).standard_normal(
+        (B, 4 * H)).astype(np.float32))
+    cpu_gp = sample_gp_prior(z, start, goal, H, dt, B)
+    f64 = sample_gp_prior(z, start, goal, H, dt, B, dtype=torch.float64)
+    gap = float((cpu_gp.double() - f64).abs().max())
+    card_gp = sample_gp_prior(z.to(dev), start.to(dev), goal.to(dev), H, dt, B)
+    gp_err = float((card_gp.cpu() - cpu_gp).abs().max())
+    print(f"rest: sample_gp_prior at ({B}, {H}, 4): max |card - cpu| {gp_err:.3e}; the CPU's "
+          f"float32 against float64 {gap:.3e}; tolerance twice that, {2 * gap:.3e}")
+    if not torch.isfinite(card_gp).all() or not gp_err <= 2 * gap:
+        raise RuntimeError(f"GP prior: card against CPU {gp_err} > {2 * gap}")
+    summary["gp_prior"] = {"max_abs_err": gp_err, "cpu_f32_f64_gap": gap, "tolerance": 2 * gap}
+
+    # (c) the fields of viz through the lookup kernel, exactly the plain
+    # lookup's.
+    lookup_err, lookup_at, fields = 0.0, {}, {}
+    for env_name in ("EnvConveyor2D", "EnvEmptyNoWait2D"):
+        env = make_env(env_name, dev)
+        scene = env.scene
+        tables = ((scene.grid.values, scene.grid.grads),
+                  (scene.extra_grid.values, scene.extra_grid.grads))
+        box = (scene.grid.lower, scene.grid.upper)
+        zero_counts()  # viz path starts
+        sdf = sdf_field(scene, env.limits, VIZ_SDF_N)
+        grad = grad_sdf_field(scene, env.limits, VIZ_GRAD_N)
+        got = counts()  # viz path ends
+        launches[f"viz {env_name}"] = got
+        if got != want(0, 0, 2):
+            raise RuntimeError(f"viz fields on {env_name} launched {got}, expected 2 lookups")
+        errs = []
+        for n, field, k in ((VIZ_SDF_N, sdf, 0), (VIZ_GRAD_N, grad, 1)):
+            pts = torch.from_numpy(field_grid(env.limits, n)[2]).to(dev)
+            plain = sdf_kernel.grid_lookup_plain(pts, tables, *box)[k][0]
+            errs.append(float((field - plain).abs().max()))
+        lookup_err = max(lookup_err, *errs)
+        print(f"rest: viz fields on {env_name}: sdf {tuple(sdf.shape)} and gradient "
+              f"{tuple(grad.shape)} through the lookup kernel, max |kernel - plain| "
+              f"{errs[0]:.1e} and {errs[1]:.1e} (tolerance {REPLAY_TOL}), launches {got}")
+        if max(errs) > REPLAY_TOL or not torch.isfinite(sdf).all():
+            raise RuntimeError(f"viz fields on {env_name} differ from the plain lookup: {errs}")
+        fields[env_name] = {"sdf_err": errs[0], "grad_err": errs[1]}
+        if env_name == "EnvConveyor2D":
+            pts = torch.from_numpy(field_grid(env.limits, VIZ_SDF_N)[2]).to(dev)
+            at = time_lookup(scene, tables, pts)
+            lookup_at = {"shape": list(pts.shape), **at, "max_abs_err": errs[0]}
+            print(f"rest: lookup at the SDF field's {tuple(pts.shape)}: {at['device_us']:.4f} us a "
+                  f"launch on the device, wrapper {at['ms']:.5f} ms, plain {at['plain_ms']:.5f} "
+                  f"ms, bound {at['bound_ms']:.6f} ms ({at['bytes']} B, {at['cells']} cells) "
+                  f"({card})")
+    summary["viz_fields"] = fields
+
+    # (d) the FLOP accounting, on phase 8's XECBS search, and the compile
+    # seconds of the build and of a later plan.
+    planner = load_planner("EnvEmptyNoWait2D", starts[0], goals[0], dev)
+    cfg = planner.cfg
+    forward = unet_forward_flops(planner.model, cfg.n_samples, cfg.horizon, cfg.state_dim)
+    peak = gpu_peak_flops()
+    evals = xecbs["unet_forwards"]
+    mfu = mfu_pct(evals, forward, xecbs["plan_s"], peak)
+    print(f"rest: one UNet forward at B={cfg.n_samples}: {forward} FLOPs; the card's dense "
+          f"bf16 peak {peak} FLOP/s; phase 8's XECBS: unet_evals {evals}, model_gflops "
+          f"{evals * forward / 1e9:.3f}, mfu_pct {mfu} over its {xecbs['plan_s']:.4f} s ({card}; "
+          f"its UNet ran in bf16, against the bf16 peak)")
+    if peak is None or mfu is None or not forward > 0:
+        raise RuntimeError(f"FLOP accounting: forward {forward}, peak {peak}")
+    summary["flops"] = {"unet_forward_flops": forward, "peak_flops": peak,
+                        "xecbs_unet_evals": evals, "xecbs_model_gflops": evals * forward / 1e9,
+                        "xecbs_mfu_pct": mfu, "xecbs_wall_s": xecbs["plan_s"]}
+    cset, spc = planner._pack(None)
+    gd = GuideData(scene=planner.scene, normalizer=planner.dataset.normalizer,
+                   constraints=cset, soft_paths=spc)
+    planner._plan_fresh(gd, planner.draw_noise(), planner.hard_conds)  # warm-up
+    noise = planner.draw_noise()
+    zero_counts()  # plan path starts
+    with compile_time_monitor() as plan_compile:
+        _sync_free(lambda: planner._plan_fresh(gd, noise, planner.hard_conds))
+    got = counts()  # plan path ends
+    launches["compile-monitored plan"] = got
+    guided = cfg.n_guided_steps()
+    print(f"rest: compile_time_monitor: the build {build_compile_s:.3f} s, a later plan "
+          f"{plan_compile['compile_s']:.3f} s (sync-free, launches {got})")
+    if not build_compile_s > 0 or plan_compile["compile_s"] != 0.0 or got != want(guided, 0, 1):
+        raise RuntimeError(f"compile seconds {build_compile_s} / {plan_compile['compile_s']}, "
+                           f"launches {got}")
+    summary["compile_s"] = {"build": build_compile_s, "plan": plan_compile["compile_s"]}
+
+    # (e) a profiler trace of one plan.
+    zero_counts()  # traced plan path starts
+    with profiler_trace(os.path.join(ROOT, "build", "chip_smoke_trace")) as prof:
+        _sync_free(lambda: planner._plan_fresh(gd, noise, planner.hard_conds))
+    got = counts()  # traced plan path ends
+    launches["traced plan"] = got
+    with open(prof.trace_path) as f:
+        named = f.read().count("guide_loop_kernel")
+    size = os.path.getsize(prof.trace_path)
+    print(f"rest: profiler_trace of one plan, sync-free: {prof.trace_path} ({size} B), names "
+          f"guide_loop_kernel {named} times; launches {got}")
+    if named < guided or got != want(guided, 0, 1):
+        raise RuntimeError(f"the trace names the guide loop {named} times, launches {got}")
+    summary["trace"] = {"bytes": size, "guide_loop_events": named}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"rest: phase {summary['phase_s']:.2f} s")
+    return {"launches": launches, "summary": summary, "lookup_at": lookup_at,
+            "lookup_err": lookup_err}
 
 
 if __name__ == "__main__":

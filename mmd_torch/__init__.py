@@ -9,9 +9,14 @@ caller passes `device="cpu"`. Ported so far: the single-robot MPD planner
 (`planners.multi_agent.cbs`), multi-tile planning
 (`planners.single_agent.mpd_ensemble`), training (`train.trainer`,
 with checkpoints both packages read, `train.checkpoint`), DDIM,
-evaluation and data generation (`tools.eval_model`, `datagen`), and the
+evaluation and data generation (`tools.eval_model`, `datagen`), the
 experiment harness (`experiments`, the sweep launchers and
-`tools.results_to_markdown`). Three hand-written CUDA
+`tools.results_to_markdown`), the UNet's attention and context modes,
+GP-prior sampling (`costs.gp`), the timers, profilers and FLOP accounting
+of `utils` (the bench's `mfu_pct`), rendering (`viz`, which imports
+matplotlib only when it draws) and the twins of the JAX package's scripts
+under `tools`. Not ported: sharding a team over devices
+(`parallel/sharding.py`, ROADMAP.md Queue 1). Three hand-written CUDA
 kernels run on the card, the guide loop (`csrc/guide_loop.cu`: a guided
 diffusion step's guide iterations in one launch), the collision guide
 (`csrc/collision_guide.cu`) and the grid-SDF lookup (`csrc/grid_sdf.cu`);

@@ -6,14 +6,17 @@ Twin of `mmd_tpu/experiments/trial.py` (reference:
 scripts/inference/inference_multi_agent.py:81-366): a single-tile agent
 gets an `MPD` in its tile's frame, a longer skeleton an `MPDEnsemble` in
 the global frame; agent i starts `stagger_dt * i` steps late; the
-reference task spans every tile of the grid. Not ported yet: the frame
-of a successful trial (mmd_single_trial.png) and its animation, which
-wait for `viz/` (ROADMAP.md Queue 1 item 3).
+reference task spans every tile of the grid. A saved successful trial
+gets its frame, mmd_single_trial.png, and with `render_animation` its GIF
+(`viz.visualizer`, on the host, with matplotlib). Where matplotlib is not
+installed the frame is skipped with one line on stderr, and
+`render_animation` raises ImportError before the trial plans.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -43,6 +46,7 @@ from mmd_torch.tasks.task import PlanningTask
 from mmd_torch.tasks.task_ensemble import TaskEnsemble
 from mmd_torch.train.checkpoint import load_checkpoint
 from mmd_torch.utils.metrics import compute_average_acceleration, compute_path_length
+from mmd_torch.utils.profiling import compile_time_monitor
 
 ROOT = Path(__file__).resolve().parents[2]
 TILE_WIDTH = 2.0   # reference: inference_multi_agent.py:146-149
@@ -231,15 +235,51 @@ def score_solution(paths_l: List[np.ndarray], status: TrialSuccessStatus,
     return score
 
 
+SHARDING_NOT_PORTED = ("sharding a team over devices is not ported (ROADMAP.md Queue 1, "
+                       "\"sharding\": parallel/sharding.py)")
+
+
 def refuse_unported(cfg: MultiAgentPlanningSingleTrialConfig, mesh=None) -> None:
-    """Raise ValueError for a knob of the JAX trial that the port lacks,
-    naming the ROADMAP.md item that ports it, rather than ignore it."""
+    """Raise ValueError for a knob of the JAX trial that the port lacks
+    (a mesh), naming the ROADMAP.md item that ports it, rather than ignore
+    it; and ImportError for `render_animation` on a machine without
+    matplotlib, before anything is planned."""
     if mesh is not None:
-        raise ValueError("mesh: sharding a team over devices is not ported "
-                         "(ROADMAP.md Queue 1 item 3, parallel/sharding.py)")
+        raise ValueError(f"mesh: {SHARDING_NOT_PORTED}")
     if cfg.render_animation:
-        raise ValueError("render_animation: rendering is not ported "
-                         "(ROADMAP.md Queue 1 item 3, viz/)")
+        from mmd_torch.viz.visualizer import pyplot
+
+        pyplot()
+
+
+def save_renders(cfg: MultiAgentPlanningSingleTrialConfig, trial: "TrialTeam",
+                 paths_l: List[np.ndarray], results_dir: str) -> None:
+    """A successful trial's frame, and its GIF with `render_animation`
+    (JAX trial.py:277-290): the team's paths over every tile of the grid.
+    Without matplotlib the frame is skipped with one line on stderr."""
+    from mmd_torch.viz.visualizer import PlanningVisualizer, pyplot
+
+    try:
+        pyplot()
+    except ImportError as e:
+        if cfg.render_animation:
+            raise
+        print(f"run_multi_agent_trial: mmd_single_trial.png skipped: {e}", file=sys.stderr)
+        return
+    coords = [[r, c] for r in range(len(cfg.global_model_ids))
+              for c in range(len(cfg.global_model_ids[0]))]
+    envs = [make_env(env_name_from_model_id(cfg.global_model_ids[r][c]), device="cpu")
+            for r, c in coords]
+    transforms = np.stack([tile_transform(rc) for rc in coords])
+    viz = PlanningVisualizer(robot_radius=trial.planners[0].robot.radius)
+    viz.save_frame(paths_l, trial.start_l, trial.goal_l,
+                   output_fpath=os.path.join(results_dir, "mmd_single_trial.png"),
+                   envs=envs, env_transforms=transforms)
+    if cfg.render_animation:
+        viz.animate_multi_robot_trajectories(
+            trajs_l=paths_l, start_state_l=trial.start_l, goal_state_l=trial.goal_l,
+            video_filepath=os.path.join(results_dir, "mmd_single_trial.gif"),
+            envs=envs, env_transforms=transforms)
 
 
 def search_kwargs(cfg: MultiAgentPlanningSingleTrialConfig) -> dict:
@@ -261,9 +301,10 @@ def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
     of the repository's checkpoints on the card by default), time
     `team.plan(runtime_limit)` on the host clock up to a synchronize of the
     card, score the solution (`score_solution`) and save the result under
-    `results_root`. `planning_time` includes no compile: on the card the
-    kernels are built before the clock starts, and `jit_compile_time` is
-    0.0. The success frame (mmd_single_trial.png) is not written yet.
+    `results_root`, with a successful trial's renders (`save_renders`). On
+    the card the kernels are built before the clock starts;
+    `jit_compile_time` holds the seconds spent building kernels inside the
+    plan (`utils.profiling.compile_time_monitor`), 0.0 once they are built.
     Unported knobs and, when saving, the committed `results/` tree raise
     (`refuse_unported`, `check_results_root`)."""
     refuse_unported(cfg, mesh)
@@ -281,8 +322,9 @@ def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
 
         load_kernels()  # built once a process, before the clock starts
     t0 = time.perf_counter()
-    paths_l, num_ct_expansions, status, n_coll = trial.team.plan(
-        runtime_limit=cfg.runtime_limit)
+    with compile_time_monitor() as compile_acc:
+        paths_l, num_ct_expansions, status, n_coll = trial.team.plan(
+            runtime_limit=cfg.runtime_limit)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     planning_time = time.perf_counter() - t0
@@ -297,6 +339,7 @@ def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
         num_collisions_in_solution=n_coll + score.n_audit,
         data_adherence=score.data_adherence,
         planning_time=planning_time,
+        jit_compile_time=float(compile_acc["compile_s"]),
         path_length_per_agent=score.path_length_per_agent,
         mean_path_acceleration_per_agent=score.mean_path_acceleration_per_agent,
         start_state_pos_l=[s.tolist() for s in trial.start_l],
@@ -306,7 +349,10 @@ def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
         team_timing=dict(trial.team.timing),
     )
     if save:
-        result.save(get_result_dir_from_trial_config(
+        results_dir = get_result_dir_from_trial_config(
             cfg, cfg.time_str or time.strftime("%y-%m-%d--%H-%M-%S"), cfg.trial_number,
-            root=results_root))
+            root=results_root)
+        result.save(results_dir)
+        if result.success_status == TrialSuccessStatus.SUCCESS and len(paths_l):
+            save_renders(cfg, trial, result.agent_path_l, results_dir)
     return result

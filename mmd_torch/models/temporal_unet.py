@@ -1,10 +1,21 @@
 """Temporal 1D-conv UNet denoiser, and the converter from flax parameters.
 
-Twin of `TemporalUnet` in `mmd_tpu/models/temporal_unet.py` without
-attention or context, which no checkpoint uses (reference:
-mmd/models/diffusion_models/temporal_unet.py:23-174, layers.py). The public
-forward keeps the JAX layout: x (B, H, D), t (B,) -> (B, H, D). Inside, the
-convolutions run in torch's (B, C, H) layout.
+Twin of `TemporalUnet` in `mmd_tpu/models/temporal_unet.py` (reference:
+mmd/models/diffusion_models/temporal_unet.py:23-174, layers.py,
+layers_attention.py). The public forward keeps the JAX layout: x (B, H, D),
+t (B,) and, in a conditioning mode, a context (B, E) -> (B, H, D). Inside,
+the convolutions run in torch's (B, C, H) layout.
+
+The optional modes, which no committed checkpoint uses, follow JAX's op
+order (einsums, softmax) so that float32 agrees:
+- `self_attention`: a pre-norm residual linear attention over the time
+  axis after each level's residual blocks and in the middle;
+- `conditioning_type` 'concatenate' (the context tiled over the horizon and
+  concatenated to the state channels, the state embedded by a two-layer
+  MLP when it is narrower than conditioning_embed_dim // 4), 'attention'
+  (pre-norm residual cross-attention onto the context at each attention
+  spot) and 'default' (the context concatenated to the time embedding).
+flax's LayerNorm, like its GroupNorm, uses eps 1e-6.
 
 `convert_flax_params` maps a flax parameter tree (nested dicts of numpy
 arrays, as `mmd_torch.io.msgpack` reads them) onto this module's
@@ -33,13 +44,18 @@ flax's ops round:
 for training.
 
 `init_unet` draws flax's default initializers.
+
+The bfloat16 twin refuses the optional modes: flax builds the attention
+submodules without a dtype, so on bfloat16 activations they compute in
+float32 and hand float32 back, a mix the twin does not reproduce (ROADMAP.md,
+"the bfloat16 UNet's attention and context modes").
 """
 from __future__ import annotations
 
 import copy
 import math
 import weakref
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +63,8 @@ from torch import nn
 from torch.nn import functional as F
 
 GROUPNORM_EPS = 1e-6  # flax nn.GroupNorm default
+LAYERNORM_EPS = 1e-6  # flax nn.LayerNorm default
+CONDITIONING_TYPES = ("", "concatenate", "attention", "default")
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -117,19 +135,127 @@ class ResidualTemporalBlock(nn.Module):
         return h + (self.res(x) if self.res is not None else x)
 
 
+class ChannelLayerNorm(nn.LayerNorm):
+    """flax's LayerNorm over the channels of a (B, C, H) activation."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=LAYERNORM_EPS)
+
+    def forward(self, x):
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+
+
+class LinearAttention(nn.Module):
+    """Linear self-attention over the time axis (layers.py:210-229), on
+    (B, C, H): q softmaxed over the head's channels, k over time."""
+
+    def __init__(self, channels: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.qkv = nn.Conv1d(channels, hidden * 3, 1, bias=False)
+        self.out = nn.Conv1d(hidden, channels, 1)
+
+    def forward(self, x):
+        B, _, H = x.shape
+        q, k, v = (t.reshape(B, self.heads, self.dim_head, H)
+                   for t in self.qkv(x).chunk(3, dim=1))       # (B, h, d, H)
+        q = torch.softmax(q, dim=-2)
+        k = torch.softmax(k, dim=-1)
+        ctx = torch.einsum("bhdn,bhen->bhde", k, v)            # (B, h, d, d)
+        out = torch.einsum("bhde,bhdn->bhen", ctx, q)          # (B, h, d, H)
+        return self.out(out.reshape(B, self.heads * self.dim_head, H))
+
+
+class PreNormResidual(nn.Module):
+    """x + fn(LayerNorm(x)) (layers.py:177-195)."""
+
+    def __init__(self, channels: int, fn: nn.Module):
+        super().__init__()
+        self.norm = ChannelLayerNorm(channels)
+        self.fn = fn
+
+    def forward(self, x):
+        return x + self.fn(self.norm(x))
+
+
+class CrossAttention(nn.Module):
+    """Multi-head cross-attention of the temporal features onto a context
+    sequence (layers_attention.py:86-148): x (B, H, C), context (B, T, E)
+    -> (B, H, C)."""
+
+    def __init__(self, channels: int, context_dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.q = nn.Linear(channels, hidden, bias=False)
+        self.k = nn.Linear(context_dim, hidden, bias=False)
+        self.v = nn.Linear(context_dim, hidden, bias=False)
+        self.out = nn.Linear(hidden, channels)
+
+    def forward(self, x, context):
+        B, H, _ = x.shape
+
+        def heads(t):
+            return t.reshape(*t.shape[:2], self.heads, self.dim_head).transpose(1, 2)
+
+        q, k, v = heads(self.q(x)), heads(self.k(context)), heads(self.v(context))
+        att = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q, k) / math.sqrt(self.dim_head),
+                            dim=-1)
+        out = torch.einsum("bhnm,bhmd->bhnd", att, v)
+        return self.out(out.transpose(1, 2).reshape(B, H, self.heads * self.dim_head))
+
+
+class ContextCrossBlock(nn.Module):
+    """x + CrossAttention(LayerNorm(x), context) (temporal_unet.py:152-170),
+    x on (B, C, H)."""
+
+    def __init__(self, channels: int, context_dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(channels, eps=LAYERNORM_EPS)
+        self.attn = CrossAttention(channels, context_dim)
+
+    def forward(self, x, context):
+        h = x.transpose(1, 2)
+        return (h + self.attn(self.norm(h), context)).transpose(1, 2)
+
+
 class TemporalUnet(nn.Module):
-    """Denoiser: x (B, H, D), t (B,) -> epsilon (B, H, D)."""
+    """Denoiser: x (B, H, D), t (B,)[, context (B, E)] -> epsilon (B, H, D).
+
+    `context_dim` is the context's width E (flax infers it at init; JAX's
+    `init_unet` takes it as `context_dim`); it defaults to
+    `conditioning_embed_dim`."""
 
     def __init__(self, state_dim: int = 4, unet_input_dim: int = 32,
-                 dim_mults: Tuple[int, ...] = (1, 2, 4), time_emb_dim: int = 32):
+                 dim_mults: Tuple[int, ...] = (1, 2, 4), time_emb_dim: int = 32,
+                 self_attention: bool = False, conditioning_type: str = "",
+                 conditioning_embed_dim: int = 32, context_dim: Optional[int] = None):
         super().__init__()
+        conditioning_type = conditioning_type or ""
+        if conditioning_type not in CONDITIONING_TYPES:
+            raise NotImplementedError(conditioning_type)
         self.state_dim = state_dim
         self.unet_input_dim = unet_input_dim
         self.dim_mults = tuple(dim_mults)
+        self.self_attention = self_attention
+        self.conditioning_type = conditioning_type
+        self.conditioning_embed_dim = conditioning_embed_dim
+        self.context_dim = context_dim = (context_dim if context_dim is not None
+                                          else conditioning_embed_dim)
         self.time_mlp = TimeEncoder(32, time_emb_dim)
-        dims = [state_dim] + [unet_input_dim * m for m in dim_mults]
+        x_dim, E = state_dim, time_emb_dim
+        if conditioning_type == "concatenate":
+            if state_dim < conditioning_embed_dim // 4:
+                e = conditioning_embed_dim // 4
+                self.state_embed = nn.ModuleList([nn.Linear(state_dim, e // 2),
+                                                  nn.Linear(e // 2, e)])
+                x_dim = e
+            x_dim += context_dim
+        elif conditioning_type == "default":
+            E += context_dim
+        dims = [x_dim] + [unet_input_dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
-        E = time_emb_dim
 
         self.downs = nn.ModuleList()
         for ind, (d_in, d_out) in enumerate(in_out):
@@ -151,19 +277,51 @@ class TemporalUnet(nn.Module):
             ]))
         self.final_block = Conv1dBlock(unet_input_dim, unet_input_dim)
         self.final_conv = nn.Conv1d(unet_input_dim, state_dim, 1)
+        # The attention spots, in flax's call order: after each down level's
+        # residual blocks, between the middle blocks, after each up level's.
+        spots = [d for _, d in in_out] + [mid] + [d for d, _ in reversed(in_out[1:])]
+        if self_attention:
+            self.self_attn = nn.ModuleList([PreNormResidual(c, LinearAttention(c))
+                                            for c in spots])
+        if conditioning_type == "attention":
+            self.cross_attn = nn.ModuleList([ContextCrossBlock(c, context_dim)
+                                             for c in spots])
 
-    def forward(self, x: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+    def _attend(self, x, spot: int, ctx3):
+        if self.self_attention:
+            x = self.self_attn[spot](x)
+        if ctx3 is not None:
+            x = self.cross_attn[spot](x, ctx3)
+        return x
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cond = self.conditioning_type
+        if cond and context is None:
+            raise ValueError(f"conditioning_type {cond!r} needs a context")
         c = self.time_mlp(time)
+        ctx3 = None
+        if cond == "concatenate":
+            if hasattr(self, "state_embed"):
+                x = self.state_embed[1](mish(self.state_embed[0](x)))
+            x = torch.cat([x, context[:, None, :].expand(-1, x.shape[1], -1)], dim=-1)
+        elif cond == "attention":
+            ctx3 = context[:, None, :]  # (B, 1, E)
+        elif cond == "default":
+            c = torch.cat([c, context], dim=-1)
         x = x.transpose(1, 2)  # (B, D, H)
-        h_stack = []
+        h_stack, spot = [], 0
         for res0, res1, down in self.downs:
-            x = res1(res0(x, c), c)
+            x = self._attend(res1(res0(x, c), c), spot, ctx3)
+            spot += 1
             h_stack.append(x)
             x = down(x)
-        x = self.mid1(self.mid0(x, c), c)
+        x = self.mid1(self._attend(self.mid0(x, c), spot, ctx3), c)
+        spot += 1
         for res0, res1, up in self.ups:
             x = torch.cat([x, h_stack.pop()], dim=1)
-            x = up(res1(res0(x, c), c))
+            x = up(self._attend(res1(res0(x, c), c), spot, ctx3))
+            spot += 1
         x = self.final_conv(self.final_block(x))
         return x.transpose(1, 2)
 
@@ -198,6 +356,11 @@ class Bf16Unet(nn.Module):
 
     def __init__(self, model: TemporalUnet):
         super().__init__()
+        if model.self_attention or model.conditioning_type:
+            raise ValueError(
+                "the bfloat16 UNet does not run self_attention or a conditioning_type: flax "
+                "computes those submodules in float32 on bfloat16 activations (ROADMAP.md, "
+                "\"the bfloat16 UNet's attention and context modes\")")
         self.net = copy.deepcopy(model)
         for m in list(self.net.modules()):
             if not isinstance(m, nn.GroupNorm):
@@ -254,15 +417,25 @@ class Bf16Forward:
 # ResidualTemporalBlock_0.. run down (two per level), mid (two), then up
 # (two per level above the bottom); Downsample1d_i and Upsample1d_i in order.
 # A residual block has a 1x1 `Conv_0` only where its channels change.
-def _param_map(n_levels: int, has_res: Callable[[int, str], bool]
-               ) -> List[Tuple[Tuple[str, ...], str, str]]:
+# Counted per class apart, in call order: the attention spots'
+# PreNormResidual_j (its LayerNorm) and LinearAttention_j (the module it
+# wraps, created in the UNet's scope, so a sibling), ContextCrossBlock_j;
+# the concatenate mode's state embedding is the UNet's own Dense_0, Dense_1.
+def _param_map(n_levels: int, has_res: Callable[[int, str], bool],
+               self_attention: bool = False, cross_attention: bool = False,
+               state_embed: bool = False) -> List[Tuple[Tuple[str, ...], str, str]]:
     """[(flax path under "params", state_dict name, layout)], layout one of
     "conv" ((k, in, out) <-> (out, in, k)), "conv_t" (the transposed conv,
     flipped in k), "dense" ((in, out) <-> (out, in)) and "same"."""
     out = []
 
-    def layer(path, name, layout):
+    def layer(path, name, layout, bias=True):
         out.append((path + ("kernel",), f"{name}.weight", layout))
+        if bias:
+            out.append((path + ("bias",), f"{name}.bias", "same"))
+
+    def norm(path, name):
+        out.append((path + ("scale",), f"{name}.weight", "same"))
         out.append((path + ("bias",), f"{name}.bias", "same"))
 
     def conv_block(path, prefix):
@@ -297,6 +470,19 @@ def _param_map(n_levels: int, has_res: Callable[[int, str], bool]
         layer((f"Upsample1d_{lvl}", "ConvTranspose_0"), f"ups.{lvl}.2", "conv_t")
     conv_block(("Conv1dBlock_0",), "final_block")
     layer(("Conv_0",), "final_conv", "conv")
+    for j in range(2 * n_levels if self_attention else 0):
+        norm((f"PreNormResidual_{j}", "LayerNorm_0"), f"self_attn.{j}.norm")
+        layer((f"LinearAttention_{j}", "Conv_0"), f"self_attn.{j}.fn.qkv", "conv", bias=False)
+        layer((f"LinearAttention_{j}", "Conv_1"), f"self_attn.{j}.fn.out", "conv")
+    for j in range(2 * n_levels if cross_attention else 0):
+        path = (f"ContextCrossBlock_{j}",)
+        norm(path + ("LayerNorm_0",), f"cross_attn.{j}.norm")
+        for k, name in enumerate(("q", "k", "v")):
+            layer(path + ("CrossAttention_0", f"Dense_{k}"), f"cross_attn.{j}.attn.{name}",
+                  "dense", bias=False)
+        layer(path + ("CrossAttention_0", "Dense_3"), f"cross_attn.{j}.attn.out", "dense")
+    for k in range(2 if state_embed else 0):
+        layer((f"Dense_{k}",), f"state_embed.{k}", "dense")
     return out
 
 
@@ -333,8 +519,10 @@ def convert_flax_params(tree: Dict, n_levels: int = 3) -> Dict[str, torch.Tensor
     """
     p = tree.get("params", tree)
     has_res = lambda r, prefix: "Conv_0" in p[f"ResidualTemporalBlock_{r}"]  # noqa: E731
+    modes = dict(self_attention="LinearAttention_0" in p,
+                 cross_attention="ContextCrossBlock_0" in p, state_embed="Dense_0" in p)
     return {name: torch.from_numpy(np.array(_TO_TORCH[layout](_get(p, path)), np.float32))
-            for path, name, layout in _param_map(n_levels, has_res)}
+            for path, name, layout in _param_map(n_levels, has_res, **modes)}
 
 
 def _sorted_tree(tree: Dict) -> Dict:
@@ -347,8 +535,11 @@ def to_flax_params(state_dict: Dict[str, torch.Tensor], n_levels: int = 3) -> Di
     """The inverse of `convert_flax_params`: a state_dict of `TemporalUnet`
     -> flax's parameter tree {"params": {...}} of float32 numpy arrays."""
     has_res = lambda r, prefix: f"{prefix}.res.weight" in state_dict  # noqa: E731
+    modes = dict(self_attention="self_attn.0.norm.weight" in state_dict,
+                 cross_attention="cross_attn.0.norm.weight" in state_dict,
+                 state_embed="state_embed.0.weight" in state_dict)
     tree: Dict = {}
-    for path, name, layout in _param_map(n_levels, has_res):
+    for path, name, layout in _param_map(n_levels, has_res, **modes):
         leaf = tree
         for key in path[:-1]:
             leaf = leaf.setdefault(key, {})
@@ -376,8 +567,8 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Modu
     each Linear, Conv1d and ConvTranspose1d weight `lecun_normal` (a
     truncated normal of variance 1 / fan_in, fan_in = kernel size x input
     channels, as flax counts it on its (k, in, out) kernel), biases zero,
-    GroupNorm scale 1 and bias 0. Drawn on the host from `generator` (a CPU
-    generator), layer by layer in module order."""
+    GroupNorm's and LayerNorm's scale 1 and bias 0. Drawn on the host from
+    `generator` (a CPU generator), layer by layer in module order."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d, nn.ConvTranspose1d)):
@@ -391,17 +582,19 @@ def flax_default_init_(module: nn.Module, generator: torch.Generator) -> nn.Modu
                 w.copy_(truncated_normal(w.shape, math.sqrt(1.0 / fan_in), generator))
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.GroupNorm):
+            elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
     return module
 
 
 def init_unet(generator: torch.Generator, state_dim: int = 4, unet_input_dim: int = 32,
-              dim_mults: Tuple[int, ...] = (1, 2, 4), device="cuda") -> TemporalUnet:
+              dim_mults: Tuple[int, ...] = (1, 2, 4), device="cuda", **kw) -> TemporalUnet:
     """A TemporalUnet with flax's default initializers, as the JAX model
     gets them (`mmd_tpu/models/temporal_unet.py:291-302` sets none; torch's
-    own default, kaiming_uniform, would train along another curve)."""
+    own default, kaiming_uniform, would train along another curve). `kw`
+    goes to TemporalUnet (self_attention, conditioning_type,
+    conditioning_embed_dim, context_dim)."""
     model = TemporalUnet(state_dim=state_dim, unet_input_dim=unet_input_dim,
-                         dim_mults=dim_mults)
+                         dim_mults=dim_mults, **kw)
     return flax_default_init_(model, generator).to(device)

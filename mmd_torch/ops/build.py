@@ -4,6 +4,8 @@
 `build/lib<stem>-<digest>.so` at the repository root; the digest covers the
 source, the headers of `csrc/` it may include, the flags and the compiler
 path, so an edited source or header never loads a stale library. The library is loaded with `ctypes` by the op that owns it.
+Each call that runs nvcc hands its seconds to every function in
+`COMPILE_LISTENERS` (`utils.profiling.compile_time_monitor`).
 """
 from __future__ import annotations
 
@@ -11,12 +13,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import List, Sequence
+from typing import Callable, List, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build"
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+# Called with the seconds of each build that ran nvcc.
+COMPILE_LISTENERS: List[Callable[[float], None]] = []
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,6 +50,7 @@ def build_shared_libraries(sources: Sequence[Path],
     nvcc = find_nvcc()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     outs, jobs = [], []
+    t0 = time.perf_counter()
     try:
         for source in sources:
             digest = hashlib.sha256(source.read_bytes() + headers + "\0".join(
@@ -71,10 +77,12 @@ def build_shared_libraries(sources: Sequence[Path],
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        if jobs:
+            for listener in list(COMPILE_LISTENERS):
+                listener(time.perf_counter() - t0)
     if errors:
         raise RuntimeError("\n".join(errors))
     return outs
-
 
 
 def load_kernels() -> None:

@@ -11,9 +11,13 @@ map's data adherence of the best free trajectory and the mean plan
 seconds without the first task's (its warm-up). `--n_samples` sets the
 batch (the JAX script parses it and keeps 64). `--out_yaml` writes the
 row list, with any earlier row of the same model replaced, to that path
-alone, as `yaml.safe_dump` writes it. `--render_dir` needs the port of
-`viz/`, which is missing: it exits with status 2. Runs on the card unless
-`--device cpu` is given.
+alone, as `yaml.safe_dump` writes it. `--render_dir` writes each task's
+free trajectories (task_<i>.png) and, for the first task, the SDF and its
+gradient field (env_sdf.png, env_grad_sdf.png; the fields through the
+lookup, the kernel on the card), the joint-space panels (joint_space.png)
+and the denoising chain (opt_iters.gif), as scripts/eval_model.py:78-100
+does; it needs matplotlib, and raises ImportError before planning without
+it. Runs on the card unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -47,11 +51,12 @@ def evaluate(env: str, n_tasks: int = 50, n_samples: int = 64, seed: int = 0,
              data_dir: str = os.path.join(ROOT, "data_trajectories"), bf16: bool = False,
              sampler: str = "ddpm", ddim_substeps: int = 0, tag: Optional[str] = None,
              variant: Optional[str] = None, device="cuda", registry=None,
-             run_plan: Callable[[int, MPD], object] = lambda i, planner: planner()
-             ) -> Dict:
+             run_plan: Callable[[int, MPD], object] = lambda i, planner: planner(),
+             render_dir: Optional[str] = None) -> Dict:
     """The evaluation row of `env`'s checkpoint (eval_model.py:53-123).
     `run_plan(i, planner)` plans task i (by default `planner()`); a caller
-    may wrap it to count or replay."""
+    may wrap it to count or replay. With `render_dir`, the renders of the
+    module docstring go there."""
     from mmd_torch.datasets.trajectories import model_id
     from mmd_torch.experiments.trial import ModelRegistry
 
@@ -75,6 +80,8 @@ def evaluate(env: str, n_tasks: int = 50, n_samples: int = 64, seed: int = 0,
         if out.traj_final_free_best is not None:
             best = out.traj_final_free_best.cpu().numpy()
             stats["adherence"].append(task.env.compute_traj_data_adherence(best[:, :2]))
+        if render_dir and out.trajs_final_free is not None:
+            render_task(render_dir, i, task, planner, out, start, goal)
     row = {
         "model": model_name(mid, bf16, sampler, ddim_substeps, tag), "n_tasks": n_tasks,
         "fraction_free": float(np.mean(stats["fraction_free"])),
@@ -96,15 +103,35 @@ def merge_row(path: str, row: Dict):
     save_rows(path, [r for r in rows if r.get("model") != row["model"]] + [row])
 
 
-class NotPorted(Exception):
-    """A flag that needs what mmd_torch does not port yet."""
+def render_task(render_dir: str, i: int, task, planner: MPD, out, start, goal) -> None:
+    """Task i's renders (eval_model.py:78-100): its free trajectories, and
+    for task 0 the SDF, its gradient field, the joint-space panels and the
+    denoising chain."""
+    from mmd_torch.viz.visualizer import PlanningVisualizer, pyplot
 
-
-def check_ported(args):
-    """NotPorted for a flag that needs what mmd_torch lacks."""
-    if args.render_dir:
-        raise NotPorted("--render_dir needs mmd_tpu/viz/ (PlanningVisualizer), which "
-                        "mmd_torch does not port yet")
+    plt = pyplot()
+    os.makedirs(render_dir, exist_ok=True)
+    viz = PlanningVisualizer(task=task)
+    fig, _ = viz.render_robot_trajectories(trajs=out.trajs_final_free, start_state=start,
+                                           goal_state=goal)
+    fig.savefig(os.path.join(render_dir, f"task_{i}.png"), dpi=90)
+    plt.close(fig)
+    if i != 0:
+        return
+    for name, render in (("env_sdf.png", viz.render_env_sdf),
+                         ("env_grad_sdf.png", viz.render_env_grad_sdf)):
+        fig, _ = render()
+        fig.savefig(os.path.join(render_dir, name), dpi=120)
+        plt.close(fig)
+    free_mask = np.zeros(len(out.trajs_final), bool)
+    free_mask[np.asarray(out.trajs_final_free_idxs)] = True
+    viz.plot_joint_space_trajectories(
+        out.trajs_final, free_mask=free_mask, pos_start=start, pos_goal=goal,
+        q_min=planner.robot.q_min, q_max=planner.robot.q_max,
+        output_fpath=os.path.join(render_dir, "joint_space.png"))
+    viz.animate_opt_iters(out.trajs_iters, idx_best=out.idx_best_traj, start_state=start,
+                          goal_state=goal,
+                          video_filepath=os.path.join(render_dir, "opt_iters.gif"))
 
 
 def main(argv=None) -> int:
@@ -128,14 +155,13 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", default=None, help="a provenance note stored in the row")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    try:
-        check_ported(args)
-    except NotPorted as e:
-        print(f"mmd_torch.tools.eval_model: {e}", file=sys.stderr)
-        return 2
+    if args.render_dir:
+        from mmd_torch.viz.visualizer import pyplot
+
+        pyplot()  # ImportError without matplotlib, before any plan
     row = evaluate(args.env, args.n_tasks, args.n_samples, args.seed, args.models_dir,
                    args.data_dir, args.bf16, args.sampler, args.ddim_substeps, args.tag,
-                   args.variant, args.device)
+                   args.variant, args.device, render_dir=args.render_dir)
     print(f"model {row['model']} over {args.n_tasks} tasks:")
     print(f"  fraction_free: {row['fraction_free']:.3f}")
     print(f"  success_rate:  {row['success_rate']:.3f}")

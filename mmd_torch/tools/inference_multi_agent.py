@@ -7,10 +7,13 @@ The twin of `scripts/inference_multi_agent.py` (reference:
 scripts/inference/inference_multi_agent.py): pick an instance, an agent
 count and a planner, run one trial on the card (`--device cpu` for the
 CPU), save its results.txt and results.pkl under
-`<results_root>/<time>/` (`build/results` by default) and print them. `--mesh_agents` other than 0 and
-`--render_animation` raise `ValueError`: sharding a team and rendering
-are not ported (ROADMAP.md Queue 1 item 3). `--results_root`,
-`--device`, `--models_dir` and `--data_dir` are the port's own flags.
+`<results_root>/<time>/` (`build/results` by default) and print them;
+a successful trial writes mmd_single_trial.png there too, and with
+`--render_animation` mmd_single_trial.gif (these need matplotlib: without
+it the frame is skipped and `--render_animation` raises ImportError).
+`--mesh_agents` other than 0 raises `ValueError`: sharding a team is not
+ported (ROADMAP.md Queue 1, "sharding"). `--results_root`, `--device`,
+`--models_dir` and `--data_dir` are the port's own flags.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import time
 
 from mmd_torch.experiments.experiments import MultiAgentPlanningSingleTrialConfig
 from mmd_torch.experiments.problems import get_planning_problem
-from mmd_torch.experiments.trial import ModelRegistry, run_multi_agent_trial
+from mmd_torch.experiments.trial import SHARDING_NOT_PORTED, ModelRegistry, run_multi_agent_trial
 from mmd_torch.tools.launch_multi_agent_experiment import add_registry_args
 
 
@@ -32,7 +35,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--planner", default="XECBS", choices=["CBS", "ECBS", "XCBS", "XECBS", "PP"])
     ap.add_argument("--runtime_limit", type=float, default=180.0)
     ap.add_argument("--stagger_dt", type=int, default=0)
-    ap.add_argument("--render_animation", action="store_true", help="not ported: raises")
+    ap.add_argument("--render_animation", action="store_true",
+                    help="write a successful trial's GIF (needs matplotlib)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--mesh_agents", type=int, default=0,
                     help="not ported: any value but 0 raises")
@@ -43,8 +47,7 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     if args.mesh_agents:
-        raise ValueError(f"--mesh_agents {args.mesh_agents}: sharding a team over devices is "
-                         f"not ported (ROADMAP.md Queue 1 item 3, parallel/sharding.py)")
+        raise ValueError(f"--mesh_agents {args.mesh_agents}: {SHARDING_NOT_PORTED}")
     cfg = MultiAgentPlanningSingleTrialConfig(
         time_str=time.strftime("%y-%m-%d--%H-%M-%S"),
         num_agents=args.num_agents,

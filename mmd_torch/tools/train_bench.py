@@ -14,8 +14,12 @@ events, the mean loss of the last chunk, FLOPs a step as
 convolutions and matmuls of forward and backward), kernels a step from a
 `torch.profiler` trace of 5 steps (with its device busy time), and where a
 step's time goes: the loss (forward), the gradients (backward) and the
-update (clip, Adam, EMA), by CUDA events between them over 50 steps. The
-JSON goes to stdout, and to `--out` if given. It needs a CUDA card: the
+update (clip, Adam, EMA), by CUDA events between them over 50 steps, and
+`mfu_pct` = 100 * FLOPs a step * steps a second / the card's dense
+bfloat16 peak (`peak_bf16_tflops`, `utils.profiling.gpu_peak_flops`; the
+float32 row is quoted against it too, as scripts/train_bench.py:125-150
+quotes both against the TPU's bf16 peak; null for a card the table lacks).
+The JSON goes to stdout, and to `--out` if given. It needs a CUDA card: the
 numbers are the card's. TF32 stays off.
 """
 from __future__ import annotations
@@ -23,7 +27,6 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
-import time
 
 import numpy as np
 import torch
@@ -36,6 +39,9 @@ from mmd_torch.models.temporal_unet import Bf16Forward, init_unet
 from mmd_torch.tools.profile_plan import _busy_us, _traced
 from mmd_torch.train import trainer
 from mmd_torch.train.trainer import TrainConfig, TrainState, train_chunk
+from mmd_torch.utils.flops import mfu_pct
+from mmd_torch.utils.profiling import gpu_peak_flops
+from mmd_torch.utils.timer import TimerCuda
 
 # scripts/train_bench.py's synthetic data: default_rng(1), uniform in [-1, 1].
 N_TRAJS, HORIZON, STATE_DIM = 10000, 64, 4
@@ -89,13 +95,12 @@ def measure(bf16: bool, n_steps: int, chunk: int) -> dict:
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     n_calls = max(1, n_steps // chunk)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(n_calls):
-        loss = train_chunk(state, forward, schedule, cfg, draw, chunk)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with TimerCuda() as timer:
+        start.record()
+        for _ in range(n_calls):
+            loss = train_chunk(state, forward, schedule, cfg, draw, chunk)
+        end.record()
+    wall = timer.elapsed
     steps = n_calls * chunk
     traced_s, events, kernels = traced_steps(step)
     return {
@@ -120,7 +125,9 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
+    peak = gpu_peak_flops()
     result = {"card": card, "device": torch.cuda.get_device_name(0),
+              "peak_bf16_tflops": peak / 1e12 if peak else None,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "recipe": {"batch_size": TrainConfig.batch_size, "horizon": HORIZON,
                          "state_dim": STATE_DIM,
@@ -130,7 +137,9 @@ def main() -> int:
                          "chunk": args.chunk, "data": f"default_rng(1) uniform [-1, 1], "
                                                        f"{N_TRAJS} x {HORIZON} x {STATE_DIM}"}}
     for bf16 in (False, True):
-        result["bf16" if bf16 else "f32"] = measure(bf16, args.steps, args.chunk)
+        row = measure(bf16, args.steps, args.chunk)
+        row["mfu_pct"] = mfu_pct(row["steps_per_sec"], row["train_step_flops"], 1.0, peak)
+        result["bf16" if bf16 else "f32"] = row
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -270,8 +270,9 @@ def train(dataset: TrajectoryDataset,
         if summary_every and (i + 1) % summary_every == 0 and model_dir:
             from mmd_torch.train.summary import summary_trajectory_generation
 
-            stats = summary_trajectory_generation(state.ema, schedule, dataset, generator,
-                                                  step=i + 1)
+            stats = summary_trajectory_generation(
+                state.ema, schedule, dataset, generator, step=i + 1,
+                save_dir=os.path.join(model_dir, "summaries"))
             log(f"summary {stats}")
         if model_dir and steps_til_checkpoint and (i + 1) % steps_til_checkpoint == 0:
             save_checkpoint(model_dir, state, dataset, cfg, suffix=f"_step_{i + 1:07d}")

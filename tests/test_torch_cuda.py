@@ -750,3 +750,33 @@ def test_mpd_plan_launches_one_guide_loop_a_guided_step_and_one_lookup(sampler, 
     assert _grew(before) == ({"ddpm": 14, "ddim": 3}[sampler], 0, 1)
     _plain_kernels(monkeypatch)
     assert torch.equal(planner(noise=noise).trajs_final, out.trajs_final)
+
+
+@pytest.mark.parametrize("name", ["EnvConveyor2D", "EnvEmptyNoWait2D"])
+def test_viz_fields_launch_the_lookup_and_equal_plain(name):
+    """viz's SDF and gradient fields on the card: one lookup launch each,
+    exactly the plain lookup's values and cell gradients."""
+    _need_card()
+    from mmd_torch.viz.visualizer import field_grid, grad_sdf_field, sdf_field
+
+    load_kernels()
+    env = make_env(name, "cuda")
+    scene = env.scene
+    tables = ((scene.grid.values, scene.grid.grads),
+              (scene.extra_grid.values, scene.extra_grid.grads))
+    before = _counts()
+    sdf = sdf_field(scene, env.limits, 200)
+    grad = grad_sdf_field(scene, env.limits, 40)
+    assert _grew(before) == (0, 0, 2)
+    for n, field, k in ((200, sdf, 0), (40, grad, 1)):
+        pts = torch.from_numpy(field_grid(env.limits, n)[2]).cuda()
+        plain = grid_lookup_plain(pts, tables, scene.grid.lower, scene.grid.upper)[k][0]
+        assert torch.equal(field, plain)
+
+
+def test_gpu_peak_flops_knows_the_card():
+    _need_card()
+    from mmd_torch.utils.profiling import gpu_peak_flops
+
+    peak = gpu_peak_flops()
+    assert peak is not None and peak > 1e14, torch.cuda.get_device_name(0)

@@ -183,9 +183,16 @@ def test_eval_cli_prints_the_row_and_writes_only_out_yaml(tmp_path):
     assert row["model"] == mid and row["n_tasks"] == 2 and row["success_rate"] == 1.0
     assert 0.0 <= row["fraction_free"] <= 1.0 and 0.0 <= row["adherence"] <= 1.0
     assert (_digest(MODEL_EVAL), sorted(os.listdir(ROOT))) == before
-    refused = subprocess.run(cmd[:5] + ["--render_dir", str(tmp_path / "r")], cwd=ROOT,
+    # --render_dir is ported (tests/test_torch_viz.py writes its renders);
+    # where matplotlib is missing (hidden here) it raises ImportError before
+    # any plan, and writes nothing.
+    hidden = ("import runpy, sys; sys.modules['matplotlib'] = None; sys.argv = sys.argv[1:]; "
+              "runpy.run_module('mmd_torch.tools.eval_model', run_name='__main__')")
+    refused = subprocess.run([sys.executable, "-c", hidden, "eval_model"] + cmd[3:5]
+                             + ["--render_dir", str(tmp_path / "r")], cwd=ROOT,
                              capture_output=True, text=True, timeout=120)
-    assert refused.returncode == 2 and "viz" in refused.stderr and "not port" in refused.stderr
+    assert refused.returncode != 0 and "ImportError" in refused.stderr
+    assert "rendering needs matplotlib" in refused.stderr
     assert not (tmp_path / "r").exists()
 
 

@@ -22,7 +22,8 @@ What is held, and how closely:
   counted and written to error_<time_str>.txt while the sweep goes on;
   results go to build/results by default, and the committed results/
   tree and a sweep whose results.pkl JAX wrote are refused.
-- The refusals of what is not ported, a mesh and `render_animation`; and
+- The refusal of what is not ported, a mesh, and `render_animation`'s
+  ImportError without matplotlib; and
   `frontier_width`, `repair_period` and `greedy_iters`, which reach the
   CBS search of a trial and of a sweep, and not PP's.
 - The CLIs take the JAX scripts' flags with their defaults;
@@ -480,17 +481,25 @@ def test_pair_sweeps_puts_each_trial_beside_jaxs(tmp_path, monkeypatch):
                                   {"greedy_iters": 4}, {"mesh": object()},
                                   {"render_animation": True}], ids=lambda k: next(iter(k)))
 def test_unported_knobs_are_refused(knob, tmp_path, cpu_registry, monkeypatch):
-    """A mesh and render_animation are still refused. The speculative
+    """A mesh is still refused (ValueError naming ROADMAP.md's sharding
+    item). render_animation, now ported, raises ImportError before anything
+    runs or is written on a machine without matplotlib (hidden here; the
+    GIF itself is tested in tests/test_torch_viz.py). The speculative
     search's knobs, which the port once refused, now reach the CBS search
     of a trial and of a sweep (JAX trial.py:201-209), and not PP's."""
     kw = {k: v for k, v in knob.items() if k != "mesh"}
     if "mesh" in knob or "render_animation" in knob:
         cfg = experiments.MultiAgentPlanningSingleTrialConfig(time_str="t", **kw)
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item"):
+        if "mesh" in knob:
+            refusal = pytest.raises(ValueError, match="ROADMAP.md Queue 1, \"sharding\"")
+        else:
+            monkeypatch.setitem(sys.modules, "matplotlib", None)
+            refusal = pytest.raises(ImportError, match="matplotlib")
+        with refusal:
             run_multi_agent_trial(cfg, registry=object(), results_root=str(tmp_path),
                                   mesh=knob.get("mesh"))
         if "mesh" not in knob:
-            with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item"):
+            with pytest.raises(ImportError, match="matplotlib"):
                 run_multi_agent_experiment(_sweep_cfg(**kw), str(tmp_path))
         assert not os.listdir(tmp_path)
         return
@@ -517,10 +526,19 @@ def test_unported_knobs_are_refused(knob, tmp_path, cpu_registry, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--mesh_agents", "2"], ["--render_animation"]])
-def test_inference_cli_refuses_what_is_not_ported(argv, tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 3"):
+def test_inference_cli_refuses_what_is_not_ported(argv, tmp_path, monkeypatch):
+    """--mesh_agents raises ValueError naming ROADMAP.md's sharding item;
+    --render_animation, now ported, raises ImportError before planning
+    where matplotlib is missing (hidden here)."""
+    if argv[0] == "--mesh_agents":
+        refusal = pytest.raises(ValueError, match="ROADMAP.md Queue 1, \"sharding\"")
+    else:
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        refusal = pytest.raises(ImportError, match="matplotlib")
+    with refusal:
         inference_multi_agent.main(argv + ["--results_root", str(tmp_path), "--device", "cpu",
                                            "--num_agents", "2"])
+    assert not os.listdir(tmp_path)
 
 
 def _jax_flags(script):

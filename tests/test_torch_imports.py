@@ -13,7 +13,13 @@ state resumed, and the training CLI's refusal of a committed model
 directory; then a short DDIM plan, one generated context (RRT and GPMP2)
 and the evaluation CLI with its row file; then a one-trial sweep of the
 experiment harness with its aggregate rendered as markdown, and a
-launcher run with its args.yaml. The JAX package's scripts are blocked
+launcher run with its args.yaml; without matplotlib a successful trial
+saves its result and skips its frame with one line on
+stderr, as the training summaries skip their figures, and the renders a
+user asks for (a sweep's render_animation, the evaluation CLI's
+--render_dir) raise ImportError; then phase 18's CPU-reachable pieces: a
+field of viz, GP-prior draws, the timer, the compile monitor and one
+forward's FLOPs. The JAX package's scripts are blocked
 too, by package and by module name. chip_smoke.py itself must exit
 non-zero and print no result without a CUDA card, and when it stands
 alone in a directory.
@@ -144,6 +150,52 @@ GUARDED = textwrap.dedent("""
     launcher.add_experiment(x=1)
     assert launcher.run()[0]["x"] == 1
     assert load_flat_yaml(os.path.join(out, "e", "x_1", "0", "args.yaml"))["x"] == 1
+    import glob
+    saved = glob.glob(os.path.join(out, "s", "**", "results.pkl"), recursive=True)
+    assert len(saved) == 1
+    from mmd_torch.experiments.experiments import MultiAgentPlanningSingleTrialConfig
+    from mmd_torch.experiments.problems import get_planning_problem
+    from mmd_torch.experiments.status import TrialSuccessStatus
+    from mmd_torch.experiments.trial import run_multi_agent_trial
+    tc = MultiAgentPlanningSingleTrialConfig(
+        time_str="one", num_agents=2, multi_agent_planner_class="PP",
+        instance_name="EnvEmptyNoWait2DRobotPlanarDiskCircle")
+    (tc.start_state_pos_l, tc.goal_state_pos_l, tc.global_model_ids,
+     tc.agent_skeleton_l) = get_planning_problem(tc.instance_name, 2)
+    r = run_multi_agent_trial(tc, ModelRegistry(device="cpu"), out, diffusion_cfg=DiffusionConfig(
+        n_samples=8, n_diffusion_steps=8, t_start_guide=4, n_guide_steps=5))
+    assert r.success_status == TrialSuccessStatus.SUCCESS, r.success_status
+    (saved,) = glob.glob(os.path.join(out, "one", "**", "results.pkl"), recursive=True)
+    assert sorted(os.listdir(os.path.dirname(saved))) == ["results.pkl", "results.txt"]
+    print("the successful trial saved its result without a frame", file=sys.stderr)
+    try:
+        run_multi_agent_experiment(dataclasses.replace(sweep, time_str="r",
+                                                       render_animation=True), out)
+    except ImportError as e:
+        assert "matplotlib" in str(e)
+    else:
+        raise AssertionError("render_animation ran without matplotlib")
+    assert not os.path.exists(os.path.join(out, "r"))
+    try:
+        eval_model.main(["--env", "EnvEmptyNoWait2D", "--render_dir", out + "/renders"])
+    except ImportError as e:
+        assert "matplotlib" in str(e)
+    else:
+        raise AssertionError("--render_dir ran without matplotlib")
+    from mmd_torch.costs.gp import sample_gp_prior
+    from mmd_torch.envs.envs import make_env
+    from mmd_torch.utils.flops import unet_forward_flops
+    from mmd_torch.utils.profiling import compile_time_monitor, gpu_peak_flops
+    from mmd_torch.utils.timer import TimerCuda
+    from mmd_torch.viz.visualizer import sdf_field
+    env = make_env("EnvConveyor2D", "cpu")
+    with TimerCuda(device="cpu") as t, compile_time_monitor() as acc:
+        assert sdf_field(env.scene, env.limits, 20).shape == (400,)
+        g = torch.Generator().manual_seed(0)
+        x0 = torch.zeros(4)
+        assert sample_gp_prior(g, x0, x0 + 0.5, 16, 0.1, 3).shape == (3, 16, 4)
+    assert t.elapsed > 0 and acc["compile_s"] == 0.0 and gpu_peak_flops("cpu") is None
+    assert unet_forward_flops(model, 2, 64, 4) > 0
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules")
@@ -159,6 +211,13 @@ def test_port_imports_and_runs_without_jax_flax_yaml_msgpack():
     proc = _run(["-c", GUARDED, ROOT], cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
+    # Without matplotlib the figures drawn as a side effect are skipped,
+    # each with one line on stderr: the training summary's (one summary a
+    # run of the two) and the successful trial's frame.
+    err = proc.stderr.splitlines()
+    assert sum("summary_trajectory_generation: figure skipped" in e for e in err) == 2, err
+    assert sum("mmd_single_trial.png skipped" in e and "matplotlib" in e for e in err) == 1, err
+    assert "the successful trial saved its result without a frame" in err
 
 
 def test_chip_smoke_fails_without_a_card():
