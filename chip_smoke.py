@@ -250,6 +250,25 @@ this file. Phases, one short line each:
    no new search); the kernel build's compile seconds of phase 2 (> 0) and
    of one later plan, sync-free, (0.0); (e) a profiler trace of one plan,
    sync-free, whose Chrome trace file must name the guide-loop kernel
+19. sharding (after phase 18, before the report): (a) in this process, a
+   1-rank NCCL process group and make_mesh([1], ("agent",)): the 10-robot
+   XECBS of phase 8 (bf16, DDPM) with the mesh against the same search
+   without one from the same seeds: the same expansions and bitwise-equal
+   paths, and its launches as phase 8 counts them; (b) two spawned ranks
+   on the one card over gloo with CUDA tensors (`parallel.sharding.spawn`,
+   `tools.shard_cases.chip_case`): the 10-robot fresh team root in f32, 5
+   agents a rank, bitwise equal across the ranks and within CPU_TOL of the
+   unsharded root on the same draws in this process, each rank launching
+   14 guide loops and 1 lookup; XECBS-R (one repair round, bf16) on the
+   circle, and (a)'s XECBS, whose serial ECBS root every rank plans whole
+   with rank 0's plans broadcast: each SUCCESS with 0 conflicts on each
+   rank, both ranks' paths bitwise equal, each rank's launches as its
+   sampler calls, expansions beside the unsharded search's; then, in the
+   same two ranks (a spawn costs seconds), the dry run's ranks
+   (`parallel.dryrun.dryrun_rank`, as `dryrun_multichip(2, "gloo",
+   "cuda")` runs them), checked and reported by the dry run's own
+   `report` with its OK line (its 2-D section needs 4 ranks); (c) the
+   phase's seconds, bounded by SHARDING_BUDGET_S
 11. one JSON line of kernel numbers (launches: the sum over the paths,
    each counted from 0 just before it and read just after; the sampler's
    paths launch the guide loop and no collision guide, phase 16's
@@ -257,8 +276,9 @@ this file. Phases, one short line each:
    the
    four plans of phase 5, the team plan of
    phase 7, the two searches of phase 8, phase 9's two plans, search and PP team,
-   phase 10's, phases 12, 13 and 14's, phase 15's two, phase 16's six and
-   phase 18's fields and plans;
+   phase 10's, phases 12, 13 and 14's, phase 15's two, phase 16's six,
+   phase 18's fields and plans, and phase 19's 1-rank search and each
+   spawned rank's root, XECBS-R and XECBS, counted in the rank;
    ms, plain and bound: the collision
    guide at phase 9's stacked (3, 64, 64, 4), with phase 4's (64, 64, 4)
    beside them; the guide loop at phase 17's (64, 64, 4), its other shapes
@@ -345,6 +365,10 @@ UNET_MODES_SHAPE = (64, 64, 4, 32)
 UNET_MODES_SEED = 18
 GP_DURATION, GP_SEED = 5.0, 18
 VIZ_SDF_N, VIZ_GRAD_N = 200, 40
+# Phase 19: the draws of the sharded and unsharded team roots, and the
+# phase's bound in seconds.
+SHARD_SEED = 19
+SHARDING_BUDGET_S = 60.0
 TILES_INSTANCE = "EnvTestTwoByTwoRobotPlanarDiskRandom"
 TILES_AGENTS = 4
 STAGGER_DT = 10
@@ -479,13 +503,11 @@ def routed(module, name: str, fn):
 
 
 def counts() -> dict:
-    """Every kernel's launches so far, by kernel."""
-    from mmd_torch.ops.collision_guide import collision_guide
-    from mmd_torch.ops.guide_loop import guide_loop_cuda
-    from mmd_torch.ops.sdf_kernel import grid_lookup
+    """Every kernel's launches so far, by kernel (as a spawned rank of
+    phase 19 counts its own)."""
+    from mmd_torch.tools.shard_cases import launches
 
-    return {"guide_loop": guide_loop_cuda.launches, "collision_guide": collision_guide.launches,
-            "grid_sdf_lookup": grid_lookup.launches}
+    return launches()
 
 
 def zero_counts():
@@ -883,6 +905,9 @@ def main() -> int:
     phase("rest")
     rest = run_rest_phase(dev, smi, cbs["summary"], build_compile["compile_s"])
 
+    phase("sharding")
+    sharded = run_sharding_phase(dev, cfg)
+
     phase("report")
     floor_us = launch_floor_us()
     print(f"report: launch floor (a 1-element fill_) {floor_us:.4f} us on the device")
@@ -898,6 +923,7 @@ def main() -> int:
         by_path.update({k: v[name] for k, v in speculative["launches"].items()})
         by_path.update({k: v[name] for k, v in baselines["launches"].items()})
         by_path.update({k: v[name] for k, v in rest["launches"].items()})
+        by_path.update({k: v[name] for k, v in sharded["launches"].items()})
         # Every path of the run, each counted from 0 just before it and read
         # just after: the sampler's guide loops launch the guide-loop kernel;
         # phase 16's zoo-term plan, the one path whose guide runs its
@@ -944,6 +970,7 @@ def main() -> int:
                       "datagen": generated["summary"], "experiments": experiments["summary"],
                       "speculative": speculative["summary"],
                       "baselines": baselines["summary"], "rest": rest["summary"],
+                      "sharding": sharded["summary"],
                       "total_s": round(time.perf_counter() - t_start, 3),
                       "deadline_s": DEADLINE_S}))
     print(f"report: the whole run took {time.perf_counter() - t_start:.1f} s of its "
@@ -2717,6 +2744,148 @@ def run_rest_phase(dev, card: str, xecbs: dict, build_compile_s: float):
     print(f"rest: phase {summary['phase_s']:.2f} s")
     return {"launches": launches, "summary": summary, "lookup_at": lookup_at,
             "lookup_err": lookup_err}
+
+
+def run_sharding_phase(dev, cfg) -> dict:
+    """Phase 19 (module docstring): the team sharded over ranks."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mmd_torch.experiments.status import TrialSuccessStatus
+    from mmd_torch.parallel import dryrun
+    from mmd_torch.parallel.sharding import init_mesh, make_mesh, spawn
+    from mmd_torch.planners.multi_agent.cbs import CBS
+    from mmd_torch.planners.multi_agent.conflict_detection import count_conflicts
+    from mmd_torch.tools import shard_cases
+
+    t_phase = time.perf_counter()
+    launches, summary = {}, {}
+    run_dir = os.path.join(ROOT, "build")  # gitignored
+    os.makedirs(run_dir, exist_ok=True)
+
+    def xecbs(mesh, **knobs):
+        """The 10-robot XECBS (bf16) of phase 8, made: its construction
+        checks the starts and goals (two lookups) before its path starts."""
+        planners, starts, goals = shard_cases.team_planners(dev, TEAM_AGENTS, bf16=True)
+        return CBS(planners, starts, goals, is_ecbs=True, is_xcbs=True, mesh=mesh, **knobs)
+
+    def solved(name, team, out):
+        paths, n_exp, status, n_conflicts = out
+        if (status != TrialSuccessStatus.SUCCESS or n_conflicts != 0
+                or count_conflicts(paths, team.margin) != 0):
+            raise RuntimeError(f"sharding: {name}: status {status}, {n_conflicts} conflicts")
+
+    # (a) one rank in this process, over NCCL, against no mesh
+    per_fresh, per_local = cfg.n_guided_steps(), cfg.n_guided_steps(3)
+    t0 = time.perf_counter()
+    store_dir = tempfile.mkdtemp(dir=run_dir)
+    init_mesh("nccl", 0, 1, os.path.join(store_dir, "store"))
+    try:
+        mesh = make_mesh([1], axis_names=("agent",))
+        init_s = time.perf_counter() - t0
+        ref_team = xecbs(None)
+        ref = ref_team.plan(runtime_limit=600)
+        team = xecbs(mesh)
+        zero_counts()  # sharding_xecbs path starts
+        out = team.plan(runtime_limit=600)
+        launches["sharding_xecbs"] = counts()  # sharding_xecbs path ends
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    solved("1-rank XECBS", team, out)
+    same_paths = all(np.array_equal(a, b) for a, b in zip(out[0], ref[0]))
+    same_nodes = torch.equal(team.final.paths_all, ref_team.final.paths_all)
+    fresh, local = calls_of(team.timing)
+    print(f"sharding: (a) {TEAM_AGENTS}-robot XECBS (bf16) on a 1-rank NCCL 'agent' mesh in "
+          f"{team.timing['plan_s']:.3f} s (process group and mesh {init_s:.2f} s), "
+          f"{out[1]} expansions; without a mesh {ref_team.timing['plan_s']:.3f} s, {ref[1]} "
+          f"expansions; paths bitwise equal {same_paths and same_nodes}; launches "
+          f"{launches['sharding_xecbs']}")
+    if out[1] != ref[1] or not (same_paths and same_nodes):
+        raise RuntimeError("sharding: the 1-rank mesh search differs from the unsharded one")
+    expected = want(per_fresh * fresh + per_local * local, 0, fresh + local)
+    if launches["sharding_xecbs"] != expected:
+        raise RuntimeError(f"sharding: the 1-rank search launched {launches['sharding_xecbs']}, "
+                           f"expected {expected}")
+    summary["one_rank"] = {"plan_s": team.timing["plan_s"], "unsharded_plan_s":
+                           ref_team.timing["plan_s"], "expansions": out[1]}
+
+    # (b) two ranks on the one card over gloo, CUDA tensors
+    root_team = {"n_agents": TEAM_AGENTS}
+    spec = {"root": {"team": root_team, "noise_seed": SHARD_SEED, "mesh": [2],
+                     "axes": ("agent",)},
+            "runs": [{"team": {"n_agents": TEAM_AGENTS, "bf16": True},
+                      "search": {"is_ecbs": True, "is_xcbs": True, "root_repair_rounds": 1},
+                      "mesh": [2], "axes": ("agent",)},
+                     {"team": {"n_agents": TEAM_AGENTS, "bf16": True},
+                      "search": {"is_ecbs": True, "is_xcbs": True},
+                      "mesh": [2], "axes": ("agent",)}],
+            "dryrun": 2}
+    t0 = time.perf_counter()
+    ranks = spawn(shard_cases.chip_case, 2, "gloo", dev, spec)
+    spawn_s = time.perf_counter() - t0
+    root = shard_cases.team_root(dev, root_team, noise_seed=SHARD_SEED)
+    got = [r["root"] for r in ranks]
+    across = all(torch.equal(got[1][k], got[0][k]) for k in ("trajs", "free_mask", "ix"))
+    err = float((got[0]["trajs"] - root["trajs"].cpu()).abs().max())
+    root_want = want(per_fresh, 0, 1)
+    print(f"sharding: (b) {TEAM_AGENTS}-robot root (f32) on 2 gloo ranks, {TEAM_AGENTS // 2} "
+          f"agents each: ranks "
+          f"bitwise equal {across}; max |sharded - unsharded| {err:.3e} (tolerance {CPU_TOL}); "
+          f"launches by rank {[g['launches'] for g in got]}")
+    if not across or not err <= CPU_TOL:
+        raise RuntimeError(f"sharding: the 2-rank root: ranks equal {across}, off by {err}")
+    if any(g["launches"] != root_want for g in got):
+        raise RuntimeError(f"sharding: a rank of the root launched other than {root_want}")
+    # Each search against the unsharded one: XECBS-R's here, XECBS's (a)'s.
+    ref_r_team = xecbs(None, root_repair_rounds=1)
+    ref_r = ref_r_team.plan(runtime_limit=600)
+    solved("unsharded XECBS-R", ref_r_team, ref_r)
+    unsharded = {"xecbs_r": (ref_r[1], ref_r_team.timing["plan_s"]),
+                 "xecbs": (ref[1], ref_team.timing["plan_s"])}
+    two_ranks = {}
+    for k, (name, label) in enumerate((("xecbs_r", "XECBS-R (bf16, 1 repair round)"),
+                                       ("xecbs", "XECBS (bf16, the serial ECBS root)"))):
+        searches = [r["runs"][k] for r in ranks]
+        paths_equal = torch.equal(searches[0]["paths"], searches[1]["paths"])
+        print(f"sharding: (b) {label} on 2 gloo ranks: {searches[0]['status']}, "
+              f"{searches[0]['n_exp']} expansions in {searches[0]['plan_s']:.3f} s (without a "
+              f"mesh: {unsharded[name][0]} expansions in {unsharded[name][1]:.3f} s); ranks' "
+              f"paths bitwise equal {paths_equal}; launches by rank "
+              f"{[r['launches'] for r in searches]}")
+        for r, sr in enumerate(searches):
+            if sr["status"] != str(TrialSuccessStatus.SUCCESS) or sr["n_conflicts"]:
+                raise RuntimeError(f"sharding: rank {r}'s 2-rank {label}: {sr['status']}, "
+                                   f"{sr['n_conflicts']} conflicts")
+            # Every call runs on every rank, on its share or whole: 14 guide
+            # loops a fresh call, 4 a local one, one lookup a call.
+            fresh, local = sr["calls"]
+            if sr["launches"] != want(per_fresh * fresh + per_local * local, 0, fresh + local):
+                raise RuntimeError(f"sharding: rank {r}'s {label} launched {sr['launches']} "
+                                   f"for {fresh} fresh and {local} local sampler calls")
+            launches[f"sharding_{name}_rank{r}"] = sr["launches"]
+        if not paths_equal:
+            raise RuntimeError(f"sharding: the ranks' {label} paths differ")
+        two_ranks.update({f"{name}_expansions": searches[0]["n_exp"],
+                          f"{name}_plan_s": searches[0]["plan_s"],
+                          f"unsharded_{name}_expansions": unsharded[name][0],
+                          f"unsharded_{name}_plan_s": unsharded[name][1]})
+    for r, g in enumerate(got):
+        launches[f"sharding_root_rank{r}"] = g["launches"]
+    dryrun.report(2, [r["dryrun"] for r in ranks])
+    phase_s = time.perf_counter() - t_phase
+    print(f"sharding: the spawn, the dry run's ranks included, {spawn_s:.2f} s; the phase "
+          f"took {phase_s:.1f} s (bound {SHARDING_BUDGET_S} s)")
+    if phase_s > SHARDING_BUDGET_S:
+        raise RuntimeError(f"sharding: the phase took {phase_s:.1f} s, over its "
+                           f"{SHARDING_BUDGET_S} s")
+    summary.update({"two_ranks": {"root_max_abs_err": err, "spawn_s": spawn_s, **two_ranks},
+                    "phase_s": phase_s})
+    return {"launches": launches, "summary": summary}
 
 
 if __name__ == "__main__":

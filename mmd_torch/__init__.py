@@ -15,8 +15,8 @@ experiment harness (`experiments`, the sweep launchers and
 GP-prior sampling (`costs.gp`), the timers, profilers and FLOP accounting
 of `utils` (the bench's `mfu_pct`), rendering (`viz`, which imports
 matplotlib only when it draws) and the twins of the JAX package's scripts
-under `tools`. Not ported: sharding a team over devices
-(`parallel/sharding.py`, ROADMAP.md Queue 1). Three hand-written CUDA
+under `tools`, and sharding a team over ranks (`parallel.sharding`,
+explicit SPMD over `torch.distributed`; `parallel.dryrun`). Three hand-written CUDA
 kernels run on the card, the guide loop (`csrc/guide_loop.cu`: a guided
 diffusion step's guide iterations in one launch), the collision guide
 (`csrc/collision_guide.cu`) and the grid-SDF lookup (`csrc/grid_sdf.cu`);

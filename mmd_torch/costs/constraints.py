@@ -53,6 +53,14 @@ class ConstraintSet:
             f.name: getattr(self, f.name).flatten(0, lead)
             for f in dataclasses.fields(self) if f.name != "n_active"})
 
+    def take(self, rows: slice) -> "ConstraintSet":
+        """A stack's sets (N, K, ...) of problems or tiles `rows`.
+        `n_active` still counts all N, as JAX's static count of the
+        stacked set does: the guide only tests it for zero."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[rows]
+            for f in dataclasses.fields(self) if f.name != "n_active"})
+
 
 def _as_set(arrays: dict, device) -> ConstraintSet:
     return ConstraintSet(n_active=int(arrays["active"].sum()),
@@ -154,6 +162,11 @@ class SoftPathConstraints:
     @property
     def rows(self) -> int:
         return self.points.shape[-3]
+
+    def take(self, rows: slice) -> "SoftPathConstraints":
+        """A stack's soft rows (N, R, ...) of problems or tiles `rows`."""
+        return SoftPathConstraints(points=self.points[rows], mask=self.mask[rows],
+                                   radius=self.radius[rows], weight=self.weight[rows])
 
 
 def soft_path_cost(q_pos: torch.Tensor, spc: SoftPathConstraints) -> torch.Tensor:

@@ -130,6 +130,24 @@ class GuideData:
     constraints: ConstraintSet
     soft_paths: Optional[SoftPathConstraints] = None
 
+    def problems(self, rows: slice) -> "GuideData":
+        """A batched call's guide data, stacked sets and soft rows leading
+        with N problems, cut to problems `rows`; the scene and normalizer
+        are every problem's."""
+        return GuideData(scene=self.scene, normalizer=self.normalizer,
+                         constraints=self.constraints.take(rows),
+                         soft_paths=None if self.soft_paths is None
+                         else self.soft_paths.take(rows))
+
+    def tiles(self, rows: slice) -> "GuideData":
+        """A tile stack's guide data cut to tiles `rows`: the scenes, the
+        per-tile limits (T, 1, 1, D, `LimitsNormalizer.stack`), the sets
+        and the soft rows."""
+        norm = self.normalizer
+        return dataclasses.replace(
+            self.problems(rows), scene=SceneStack(self.scene.scenes[rows]),
+            normalizer=LimitsNormalizer(mins=norm.mins[rows], maxs=norm.maxs[rows]))
+
 
 def _collision_points(u: torch.Tensor, cfg: GuideConfig) -> torch.Tensor:
     if cfg.interpolate_collision:

@@ -235,17 +235,9 @@ def score_solution(paths_l: List[np.ndarray], status: TrialSuccessStatus,
     return score
 
 
-SHARDING_NOT_PORTED = ("sharding a team over devices is not ported (ROADMAP.md Queue 1, "
-                       "\"sharding\": parallel/sharding.py)")
-
-
-def refuse_unported(cfg: MultiAgentPlanningSingleTrialConfig, mesh=None) -> None:
-    """Raise ValueError for a knob of the JAX trial that the port lacks
-    (a mesh), naming the ROADMAP.md item that ports it, rather than ignore
-    it; and ImportError for `render_animation` on a machine without
+def check_renders(cfg: MultiAgentPlanningSingleTrialConfig) -> None:
+    """Raise ImportError for `render_animation` on a machine without
     matplotlib, before anything is planned."""
-    if mesh is not None:
-        raise ValueError(f"mesh: {SHARDING_NOT_PORTED}")
     if cfg.render_animation:
         from mmd_torch.viz.visualizer import pyplot
 
@@ -282,13 +274,16 @@ def save_renders(cfg: MultiAgentPlanningSingleTrialConfig, trial: "TrialTeam",
             envs=envs, env_transforms=transforms)
 
 
-def search_kwargs(cfg: MultiAgentPlanningSingleTrialConfig) -> dict:
-    """The CBS knobs of the trial's config, for a CBS team only (JAX
-    trial.py:201-209); `CBS` owns their defaults."""
+def search_kwargs(cfg: MultiAgentPlanningSingleTrialConfig, mesh=None) -> dict:
+    """The CBS knobs of the trial's config and the mesh, for a CBS team
+    only (JAX trial.py:191-209); `CBS` owns their defaults."""
     if cfg.multi_agent_planner_class == "PP":
         return {}
-    return {"frontier_width": cfg.frontier_width, "repair_period": cfg.repair_period,
-            "greedy_iters": cfg.greedy_iters}
+    kw = {"frontier_width": cfg.frontier_width, "repair_period": cfg.repair_period,
+          "greedy_iters": cfg.greedy_iters}
+    if mesh is not None:
+        kw["mesh"] = mesh
+    return kw
 
 
 def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
@@ -305,9 +300,12 @@ def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
     the card the kernels are built before the clock starts;
     `jit_compile_time` holds the seconds spent building kernels inside the
     plan (`utils.profiling.compile_time_monitor`), 0.0 once they are built.
-    Unported knobs and, when saving, the committed `results/` tree raise
-    (`refuse_unported`, `check_results_root`)."""
-    refuse_unported(cfg, mesh)
+    `mesh` (a `parallel.sharding.Mesh` with an 'agent' axis) goes to a
+    CBS-family team, which then plans SPMD over it (`CBS`); PP takes none,
+    as in JAX (trial.py:191-193). A render without matplotlib and, when
+    saving, the committed `results/` tree raise (`check_renders`,
+    `check_results_root`)."""
+    check_renders(cfg)
     if save:
         check_results_root(results_root)
     registry = registry or ModelRegistry()
@@ -315,7 +313,7 @@ def run_multi_agent_trial(cfg: MultiAgentPlanningSingleTrialConfig,
         cfg.multi_agent_planner_class, cfg.start_state_pos_l, cfg.goal_state_pos_l,
         cfg.global_model_ids, cfg.agent_skeleton_l, registry,
         stagger_dt=cfg.stagger_start_time_dt, trial_number=cfg.trial_number,
-        diffusion_cfg=diffusion_cfg, bf16=cfg.bf16, search_kw=search_kwargs(cfg))
+        diffusion_cfg=diffusion_cfg, bf16=cfg.bf16, search_kw=search_kwargs(cfg, mesh))
     device = torch.device(registry.device)
     if device.type == "cuda":
         from mmd_torch.ops.build import load_kernels

@@ -43,6 +43,12 @@ from mmd_torch.models.diffusion import (
     q_posterior_mean,
 )
 from mmd_torch.models.schedules import DiffusionSchedule
+from mmd_torch.parallel.sharding import (
+    axis_rows,
+    gather_leading_axis,
+    shard_axes,
+    shard_leading_axis,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +110,10 @@ class StackedUnet:
     def n_tiles(self) -> int:
         return len(self.models)
 
+    def tiles(self, rows: slice) -> "StackedUnet":
+        """The stack of the denoisers of tiles `rows`."""
+        return StackedUnet(self.models[rows])
+
     def __call__(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         def one(params, buffers, x_m):
             return functional_call(self._skeleton, (params, buffers), (x_m, t))
@@ -129,6 +139,29 @@ def _ensemble_mean(model: StackedUnet, schedule: DiffusionSchedule, x: torch.Ten
     return q_posterior_mean(schedule, x0, xf, tf).view_as(x)
 
 
+def tile_rows(mesh, n_tiles: int) -> Optional[slice]:
+    """This rank's tiles under a mesh with a 'tile' axis, which n_tiles
+    must divide; None without a mesh or a 'tile' axis."""
+    if mesh is None or "tile" not in mesh.axis_names:
+        return None
+    return axis_rows(n_tiles, mesh, "tile")
+
+
+def shard_tiles(mesh, rows: slice, model: StackedUnet, hard: HardConds, noise: SamplerNoise,
+                gds: Optional[GuideData]):
+    """A loop's per-tile inputs cut to this rank's tiles `rows` of the
+    mesh's 'tile' axis (each rank's share of JAX's 'tile'-sharded stacked
+    parameters, dry run section 3): the denoisers, the hard conditions,
+    the step draws (x_T stays whole: the loop starts from every tile) and
+    the stacked guide data."""
+    mask, values = shard_leading_axis((hard.mask, hard.values), mesh, "tile")
+    hard = HardConds(mask=mask, values=values)
+    noise = SamplerNoise(x_T=noise.x_T, steps=shard_axes(noise.steps, mesh, (None, "tile")))
+    if gds is not None:
+        gds = gds.tiles(rows)
+    return model.tiles(rows), hard, noise, gds
+
+
 @torch.no_grad()
 def ensemble_p_sample_loop(
     model: StackedUnet,
@@ -141,20 +174,31 @@ def ensemble_p_sample_loop(
     guide_cfg: Optional[GuideConfig] = None,
     n_diffusion_steps: Optional[int] = None,
     warm_start: Optional[torch.Tensor] = None,  # (T, B, H, D) normalized
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reverse process of all tiles, from noise.x_T or, if given,
     `warm_start` (ensemble.py:80-144). Each step: the batched forward, each
     tile's guide iterations and noise under its own hard conditions and
     guide data (one guide call covers every tile), then the seams. Returns
-    (x (T, B, H, D), chain (S+1, T, B, H, D)), normalized per tile."""
+    (x (T, B, H, D), chain (S+1, T, B, H, D)), normalized per tile.
+
+    Under a `parallel.sharding` mesh with a 'tile' axis (the JAX dry run's
+    tile-sharded stack, `__graft_entry__.py:148-177`) each rank holds its
+    tiles' share of the stack and steps only its tiles (`shard_tiles`);
+    `ensemble_step` gathers every step's x over 'tile' before the seams,
+    so every rank returns the whole x and chain."""
     steps = cfg.step_indices(n_diffusion_steps)
     if noise.steps.shape[0] != len(steps):
         raise ValueError(f"need {len(steps)} step draws, got {noise.steps.shape[0]}")
     x = apply_cross_conditioning(hard.apply(noise.x_T if warm_start is None else warm_start),
                                  cc)
+    rows = tile_rows(mesh, model.n_tiles)
+    if rows is not None:
+        model, hard, noise, gds = shard_tiles(mesh, rows, model, hard, noise, gds)
     chain = [x]
     for n, i in enumerate(steps):
-        x = ensemble_step(model, schedule, x, i, noise.steps[n], hard, cc, gds, cfg, guide_cfg)
+        x = ensemble_step(model, schedule, x, i, noise.steps[n], hard, cc, gds, cfg, guide_cfg,
+                          mesh)
         chain.append(x)
     return x, torch.stack(chain)
 
@@ -162,10 +206,18 @@ def ensemble_p_sample_loop(
 def ensemble_step(model: StackedUnet, schedule: DiffusionSchedule, x: torch.Tensor, i: int,
                   noise: torch.Tensor, hard: HardConds, cc: CrossConds,
                   gds: Optional[GuideData], cfg: DiffusionConfig,
-                  guide_cfg: Optional[GuideConfig]) -> torch.Tensor:
+                  guide_cfg: Optional[GuideConfig], mesh=None) -> torch.Tensor:
     """One reverse step of every tile at index i, then the seams; guided
-    while i < t_start_guide (as each tile's `_ddpm_step` in JAX's vmap)."""
+    while i < t_start_guide (as each tile's `_ddpm_step` in JAX's vmap).
+    Under a mesh with a 'tile' axis, x holds every tile, the model, noise,
+    hard conditions and guide data are this rank's tiles' (`shard_tiles`):
+    the rank steps its tiles, and x is gathered over 'tile' before the
+    seams, which join neighbouring tiles."""
+    rows = tile_rows(mesh, x.shape[0])
+    xs = x if rows is None else shard_leading_axis(x, mesh, "tile")
     guided = gds is not None and i < cfg.t_start_guide
-    x = _guide_and_noise(schedule, _ensemble_mean(model, schedule, x, i), i, noise, hard,
-                         gds, cfg, guide_cfg, guided)
-    return apply_cross_conditioning(x, cc)
+    xs = _guide_and_noise(schedule, _ensemble_mean(model, schedule, xs, i), i, noise, hard,
+                          gds, cfg, guide_cfg, guided)
+    if rows is not None:
+        xs = gather_leading_axis(xs, mesh, "tile")
+    return apply_cross_conditioning(xs, cc)

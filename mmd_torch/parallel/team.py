@@ -23,6 +23,17 @@ device:
 The chosen row is gathered with a device index. Only the ECBS root reads
 the device inside its loop: one flag per agent, whether its batch has a
 free trajectory, through the caller's `read`.
+
+Under a mesh with an 'agent' axis (`parallel.sharding`; JAX's
+`shard_team_inputs` placement, team.py:390-414) every rank runs the same
+pass: a sampler call of A problems plans this rank's A / n agents
+(`shard_team_inputs`) and gathers `trajs_final`, `free_mask` and
+`idx_best` over 'agent' (`share_rows`); a call whose problem count does
+not divide the axis runs whole on every rank, and rank 0's fields are
+broadcast. The ECBS root stays serial over agents, as JAX's scan does:
+every rank plans agent i, and rank 0's fields are broadcast. So every
+tensor the host reads or a later step takes comes from a collective, and
+the ranks' searches never split.
 """
 from __future__ import annotations
 
@@ -40,6 +51,12 @@ from mmd_torch.costs.constraints import (
 )
 from mmd_torch.costs.guide import GuideData
 from mmd_torch.models.diffusion import HardConds, SamplerNoise
+from mmd_torch.parallel.sharding import (
+    axis_rows,
+    broadcast,
+    gather_leading_axis,
+    shard_leading_axis,
+)
 from mmd_torch.planners.multi_agent.conflict_detection import (
     candidate_conflict_counts,
     least_conflicts,
@@ -52,6 +69,62 @@ from mmd_torch.planners.single_agent.mpd import MPD, PlanResult
 def stack_hard_conds(hard_l: Sequence[HardConds]) -> HardConds:
     """Per-agent HardConds with one shared mask as one (A, H, D) set."""
     return HardConds(mask=hard_l[0].mask, values=torch.stack([h.values for h in hard_l]))
+
+
+# The fields of a sampler call's PlanResult that a team pass and the
+# search read, and that a mesh gathers or broadcasts.
+SHARED_FIELDS = ("trajs_final", "free_mask", "idx_best")
+
+
+def _agent_mesh(mesh) -> bool:
+    return mesh is not None and "agent" in mesh.axis_names
+
+
+def team_rows(mesh, n: int) -> Optional[slice]:
+    """This rank's problems of an n-problem sampler call under `mesh`, or
+    None where the call is not sharded: no mesh, no 'agent' axis, or an
+    axis that n does not divide (JAX's rule, team.py:403-407)."""
+    if not _agent_mesh(mesh) or n % mesh.shape["agent"]:
+        return None
+    return axis_rows(n, mesh, "agent")
+
+
+def shard_team_inputs(mesh, hard_team: HardConds, noise_l: Sequence[SamplerNoise]):
+    """The team's (A, ...) inputs cut to this rank's agents over the
+    mesh's 'agent' axis (JAX's `shard_team_inputs`, team.py:390-414): the
+    hard conditions' values and the draws; the mask is shared. Every rank
+    drew the whole team's draws from the same generator, so the sharded
+    plans see exactly the draws of the unsharded one. Returns the inputs
+    unchanged where `team_rows` is None."""
+    rows = team_rows(mesh, hard_team.values.shape[0])
+    if rows is None:
+        return hard_team, list(noise_l)
+    values = shard_leading_axis(hard_team.values, mesh, "agent")
+    return HardConds(mask=hard_team.mask, values=values), list(noise_l[rows])
+
+
+def rows_result(fields: Sequence[torch.Tensor]) -> PlanResult:
+    """A PlanResult of SHARED_FIELDS alone: what a mesh's collectives hand
+    on. Its other fields are None; no team pass reads them."""
+    out = dict.fromkeys(f.name for f in dataclasses.fields(PlanResult))
+    out.update(zip(SHARED_FIELDS, fields))
+    return PlanResult(**out)
+
+
+def share_rows(mesh, res: PlanResult, sharded: bool) -> PlanResult:
+    """A sampler call's result on every rank of the mesh: the ranks'
+    problems gathered over 'agent' where the call was `sharded` (and then
+    rank 0's copy broadcast over the other axes, which only replicate), or
+    rank 0's whole result broadcast where every rank ran the call. Without
+    an 'agent' axis the result is returned as it is."""
+    if not _agent_mesh(mesh):
+        return res
+    fields = [getattr(res, f) for f in SHARED_FIELDS]
+    if sharded:
+        fields = gather_leading_axis(fields, mesh, "agent")
+        if len(mesh.axis_names) == 1:
+            return rows_result(fields)
+    return rows_result(broadcast(fields, mesh, src=0))
 
 
 def _batchable(planners: Sequence) -> bool:
@@ -105,9 +178,10 @@ class PrioritizedTeam:
     soft_weight: torch.Tensor  # ()
     tmask: torch.Tensor        # (A, H): 0 at waypoint 0, else 1
     margin: float
+    mesh: object = None        # a `sharding.Mesh` the team's calls shard over
 
     @staticmethod
-    def of(planners: Sequence[MPD], margin: float) -> "PrioritizedTeam":
+    def of(planners: Sequence[MPD], margin: float, mesh=None) -> "PrioritizedTeam":
         p0 = planners[0]
         A, H = len(planners), p0.cfg.horizon
         kw = dict(dtype=torch.float32, device=p0.device)
@@ -120,7 +194,7 @@ class PrioritizedTeam:
             hard_weight=torch.full((), default_params.weight_grad_cost_constraints, **kw),
             soft_weight=torch.full((), default_params.weight_grad_cost_soft_constraints,
                                    **kw),
-            tmask=tmask, margin=float(margin))
+            tmask=tmask, margin=float(margin), mesh=mesh)
 
     def initial_carry(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(sel_pos (A, H, 2), planned (A,)): every row unplanned, at a far
@@ -145,10 +219,16 @@ class PrioritizedTeam:
         """Every agent's fresh plan on planner 0's program as one sampler
         call (JAX's vmapped team programs): agent i with draws noise_l[i]
         and no constraint but balls' i-th rows (A, R, H, ...) if given.
-        The result leads with the agent."""
+        The result leads with the agent. Under a mesh this rank plans its
+        agents and the result's SHARED_FIELDS are gathered (`share_rows`)."""
+        hard, noise = shard_team_inputs(self.mesh, self.hard_team, noise_l)
+        rows = team_rows(self.mesh, len(noise_l))
+        if rows is not None and balls is not None:
+            balls = balls.take(rows)
         gd = GuideData(scene=self.p0.scene, normalizer=self.p0.dataset.normalizer,
                        constraints=self.base_cset, soft_paths=balls)
-        return self.p0.plan_fresh_batch(gd, noise_l, self.hard_team.values)
+        res = self.p0.plan_fresh_batch(gd, noise, hard.values)
+        return share_rows(self.mesh, res, rows is not None)
 
     def balls(self, sel_pos: torch.Tensor, mask: torch.Tensor,
               weight: torch.Tensor) -> SoftPathConstraints:
@@ -271,7 +351,9 @@ def plan_sequential_root_soft(team: PrioritizedTeam, noise_l: Sequence[SamplerNo
     excluded) and takes its least-cost free candidate. If `read`, given the
     device flag "the batch has a free trajectory", returns False, the agent
     plans again with fallback_l[i] and every ball masked (JAX's `lax.cond`,
-    team.py:97-101). `read` is the loop's only host read."""
+    team.py:97-101). `read` is the loop's only host read. Under a mesh
+    every rank plans each agent whole and rank 0's fields are broadcast
+    (`share_rows`)."""
     A, H = team.tmask.shape
     kw = dict(dtype=torch.float32, device=team.tmask.device)
     sel_pos, planned = torch.zeros((A, H, 2), **kw), torch.zeros((A,), **kw)
@@ -280,11 +362,11 @@ def plan_sequential_root_soft(team: PrioritizedTeam, noise_l: Sequence[SamplerNo
     clock.mark()
     outs = []
     for i in range(A):
-        res = team.plan_under(i, noise_l[i], team.balls(
-            sel_pos, planned[:, None] * team.tmask, team.soft_weight))
+        balls = team.balls(sel_pos, planned[:, None] * team.tmask, team.soft_weight)
+        res = share_rows(team.mesh, team.plan_under(i, noise_l[i], balls), sharded=False)
         if not read(res.free_mask.any()):
-            res = team.plan_under(i, fallback_l[i],
-                                  team.balls(sel_pos, none, team.soft_weight))
+            res = share_rows(team.mesh, team.plan_under(
+                i, fallback_l[i], team.balls(sel_pos, none, team.soft_weight)), sharded=False)
         sel_pos = sel_pos.clone()
         sel_pos[i] = _chosen_row(res, res.idx_best)
         planned = planned.clone()

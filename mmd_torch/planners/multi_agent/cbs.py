@@ -35,12 +35,14 @@ from mmd_torch.costs.constraints import pack_constraint_sets
 from mmd_torch.costs.guide import GuideData
 from mmd_torch.experiments.status import TrialSuccessStatus
 from mmd_torch.models.diffusion import HardConds, SamplerNoise
+from mmd_torch.parallel.sharding import agree, broadcast
 from mmd_torch.parallel.team import (
     PrioritizedTeam,
     _batchable,
     plan_fresh_team,
     plan_fresh_team_soft,
     plan_sequential_root_soft,
+    share_rows,
     stack_hard_conds,
     team_soft_paths,
 )
@@ -60,7 +62,7 @@ from mmd_torch.planners.multi_agent.fused import (
     expand_fresh,
     expand_local,
 )
-from mmd_torch.planners.single_agent.mpd import MPD
+from mmd_torch.planners.single_agent.mpd import MPD, PlanResult
 from mmd_torch.planners.single_agent.mpd_ensemble import MPDEnsemble
 from mmd_torch.utils.transfer import to_device
 
@@ -374,6 +376,15 @@ class CBS(CBSBase):
     popped node every that many expansions. `greedy_iters` overrides
     GREEDY_ITERS for this search (0 or None keeps the class's).
 
+    `mesh` (a `parallel.sharding.Mesh` with an 'agent' axis that divides
+    the team; JAX's `CBS(..., mesh=...)`) runs the search SPMD: every rank
+    runs this search, the team's sampler calls (the roots, repair rounds,
+    a conflict's children, the chains' steps) plan each rank's share of
+    the problems and gather the results (`team.share_rows`), and every
+    other plan runs on every rank with rank 0's outputs broadcast
+    (`_shared`), as is the runtime limit's verdict; so the ranks take the
+    same nodes and return the same paths.
+
     A root and an expansion each read the device once (`_fetch`, phase
     "root", "children", "expand", "summary", "greedy", "frontier" or
     "repair"); the ECBS root also reads one flag per agent, and a chain one
@@ -402,10 +413,19 @@ class CBS(CBSBase):
                  choose_path_strategy: Optional[str] = None,
                  conflict_types: Tuple = (PointConflict,),
                  frontier_width: int = 1, greedy_iters: Optional[int] = None,
-                 repair_period: int = 0):
+                 repair_period: int = 0, mesh=None):
         super().__init__(low_level_planner_l, start_l, goal_l, start_time_l=start_time_l,
                          reference_robot=reference_robot, reference_task=reference_task,
                          validate_start_goal=validate_start_goal)
+        if mesh is not None:
+            # JAX cbs.py:214-221, with its messages.
+            if "agent" not in mesh.axis_names:
+                raise ValueError(f"mesh {mesh.axis_names} has no 'agent' axis")
+            if self.num_agents % mesh.shape["agent"] != 0:
+                raise ValueError(
+                    f"num_agents={self.num_agents} not divisible by the "
+                    f"mesh 'agent' axis ({mesh.shape['agent']})")
+        self.mesh = mesh
         self.is_xcbs = is_xcbs
         self.is_ecbs = is_ecbs
         self.verbose = verbose
@@ -503,7 +523,8 @@ class CBS(CBSBase):
 
         def over_limit() -> bool:
             elapsed = time.perf_counter() - t_start
-            return elapsed - min(self.timing["compile_s"], elapsed) > runtime_limit
+            over = elapsed - min(self.timing["compile_s"], elapsed) > runtime_limit
+            return over if self.mesh is None else agree(over, self.mesh)
 
         status = TrialSuccessStatus.UNKNOWN
         num_expansions = 0
@@ -574,8 +595,20 @@ class CBS(CBSBase):
     def _team(self) -> PrioritizedTeam:
         """What a team pass shares (the planners are batchable), made once."""
         if self._team_cache is None:
-            self._team_cache = PrioritizedTeam.of(self.low_level_planner_l, self.margin)
+            self._team_cache = PrioritizedTeam.of(self.low_level_planner_l, self.margin,
+                                                  self.mesh)
         return self._team_cache
+
+    def _shared(self, tree):
+        """Under a mesh, the outputs of a computation that every rank ran
+        (a single child's plan, a planner's own run; JAX leaves these
+        replicated) as rank 0 holds them, so that no rounding difference
+        between ranks can split their searches. Without one, the tree."""
+        if self.mesh is None:
+            return tree
+        if isinstance(tree, PlanResult):
+            return share_rows(self.mesh, tree, sharded=False)
+        return broadcast(tree, self.mesh, src=0)
 
     def _read_free(self, free_any: torch.Tensor) -> bool:
         """The ECBS root's read of an agent's flag "the batch has a free
@@ -630,14 +663,14 @@ class CBS(CBSBase):
             soft_l = (self.create_soft_constraints_from_other_agents_paths(
                 partial, i, n_agents_in_state=len(path_tiles))
                 if self.is_ecbs and path_tiles else [])
-            res = planner._run(soft_l)
+            res = self._shared(planner._run(soft_l))
             self._count_plans(False)
             free, ix = self._fetch((res.free_mask.any(), res.idx_best), phase="root")
             if not free and soft_l:
                 # The soft balls starved the batch: replan this agent
                 # without them (cbs.py:560-570).
                 self._log(f"Soft-constrained root starved; replanning agent {i}.")
-                res = planner._run([])
+                res = self._shared(planner._run([]))
                 self._count_plans(False)
                 free, ix = self._fetch((res.free_mask.any(), res.idx_best), phase="root")
             if not free:
@@ -984,7 +1017,7 @@ class CBS(CBSBase):
                 pack_constraint_sets([hard_ls[c] for c in which], device=self.device),
                 [self._draw(self.is_xcbs) for _ in which],
                 paths_all, ix_best, [agent_ids[c] for c in which], self.margin,
-                soft_radius, soft_weight, use_soft=use_soft, local=self.is_xcbs)
+                soft_radius, soft_weight, self.mesh, use_soft=use_soft, local=self.is_xcbs)
 
         trajs, scalars = run(self.is_ecbs, list(range(len(agent_ids))))
         any_free, ix, count, t, a, b, mid = (np.array(x) for x in
@@ -1035,8 +1068,8 @@ class CBS(CBSBase):
                                constraints=cset, soft_paths=spc)
                 self._count_plans(self.is_xcbs)
                 expand = expand_local if self.is_xcbs else expand_fresh
-                return expand(planner, gd, planner.draw_noise(local=self.is_xcbs),
-                              child.paths_all, ix_best, agent_id, self.margin)
+                return self._shared(expand(planner, gd, planner.draw_noise(local=self.is_xcbs),
+                                           child.paths_all, ix_best, agent_id, self.margin))
 
             new_paths, scalars = run_once(cons_l)
             any_free, ix, *summary = self._fetch(scalars, phase="expand")
@@ -1054,10 +1087,10 @@ class CBS(CBSBase):
 
         experience = (PathBatchExperience(child.paths_all[agent_id]) if self.is_xcbs
                       else None)
-        res = planner._run(cons_l, experience)
+        res = self._shared(planner._run(cons_l, experience))
         self._count_plans(self.is_xcbs)
         if self.is_ecbs and not self._fetch(res.free_mask.any(), phase="expand"):
-            res = planner._run(hard_l, experience)
+            res = self._shared(planner._run(hard_l, experience))
             self._count_plans(self.is_xcbs)
         others_pos = self._team_pos(child)
         T = others_pos.shape[1]
@@ -1110,10 +1143,10 @@ class CBS(CBSBase):
 
         def run_once(use_soft: bool):
             self._count_plans(self.is_xcbs)
-            new_paths, scalars = expand_child_ensemble(
+            new_paths, scalars = self._shared(expand_child_ensemble(
                 planner, gds, planner.draw_noise(local=self.is_xcbs), paths_all, ix_best,
                 agent_id, self.start_times, T_out, self.margin, soft_radius, soft_weight,
-                use_soft=use_soft, local=self.is_xcbs)
+                use_soft=use_soft, local=self.is_xcbs))
             return new_paths, self._fetch(scalars, phase="expand")
 
         new_paths, (any_free, ix, *summary) = run_once(self.is_ecbs)

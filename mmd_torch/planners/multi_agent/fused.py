@@ -30,6 +30,9 @@ kernels' ctypes calls, so the batch dimension is written out.
   `index_copy`, `torch.where`) and reads one flag a step, whether its
   carry (every chain's, in a frontier) froze, to stop where JAX's
   `while_loop` stops.
+Under a `parallel.sharding` mesh with an 'agent' axis, every sampler call
+of N children shards or runs replicated as `_plan_children_on` says, and
+every rank then holds the same children.
 """
 from __future__ import annotations
 
@@ -44,11 +47,14 @@ from mmd_torch.costs.constraints import (
 )
 from mmd_torch.costs.guide import GuideData
 from mmd_torch.models.diffusion import HardConds, SamplerNoise
+from mmd_torch.parallel.sharding import shard_leading_axis
 from mmd_torch.parallel.team import (
     PrioritizedTeam,
     ScanResult,
     plan_fresh_team,
     plan_sequential_root_soft,
+    share_rows,
+    team_rows,
 )
 from mmd_torch.planners.multi_agent.conflict_detection import (
     INT32_MAX,
@@ -127,10 +133,27 @@ def _plan_children(p0: MPD, gd: GuideData, hard_values: torch.Tensor,
     return p0.plan_fresh_batch(gd, noise_l, hard_values)
 
 
+def _plan_children_on(mesh, p0: MPD, gd: GuideData, hard_values: torch.Tensor,
+                      seed_paths: torch.Tensor, noise_l: Sequence[SamplerNoise],
+                      local: bool) -> PlanResult:
+    """`_plan_children` under a mesh: where N divides its 'agent' axis this
+    rank plans its children and the result's SHARED_FIELDS are gathered;
+    any other N runs on every rank, as JAX leaves such a batch replicated,
+    and rank 0's fields are broadcast (`team.share_rows`). Without a mesh,
+    `_plan_children` itself."""
+    rows = team_rows(mesh, len(noise_l))
+    if rows is not None:
+        gd = gd.problems(rows)
+        hard_values, seed_paths = shard_leading_axis((hard_values, seed_paths), mesh, "agent")
+        noise_l = noise_l[rows]
+    res = _plan_children(p0, gd, hard_values, seed_paths, noise_l, local)
+    return share_rows(mesh, res, rows is not None)
+
+
 def expand_children(p0: MPD, hard_c: HardConds, cset: ConstraintSet,
                     noise_l: Sequence[SamplerNoise], paths_all: torch.Tensor,
                     ix_best: torch.Tensor, agent_ids: Sequence[int], margin: float,
-                    soft_radius: torch.Tensor, soft_weight: torch.Tensor,
+                    soft_radius: torch.Tensor, soft_weight: torch.Tensor, mesh=None, *,
                     use_soft: bool, local: bool) -> Tuple[torch.Tensor, Scalars]:
     """The children of one conflict on planner 0's program (the planners
     are batchable) as one sampler call (JAX's vmap over the children,
@@ -140,8 +163,9 @@ def expand_children(p0: MPD, hard_c: HardConds, cset: ConstraintSet,
     `pack_constraint_sets`), with draws noise_l[c]; fresh, or local from
     the parent's batch with `local`; under soft balls around the other
     agents' chosen paths with `use_soft`. Its choice and summary are taken
-    against the parent's chosen paths. Returns (trajs (C, B, H, D),
-    scalars each stacked over C)."""
+    against the parent's chosen paths; under `mesh` the sampler call is
+    `_plan_children_on`'s. Returns (trajs (C, B, H, D), scalars each stacked
+    over C)."""
     C = len(agent_ids)
     best_pos = _best_pos(paths_all, ix_best)
     agents = to_device(list(agent_ids), paths_all.device, torch.int64)
@@ -149,8 +173,8 @@ def expand_children(p0: MPD, hard_c: HardConds, cset: ConstraintSet,
            if use_soft else None)
     gd = GuideData(scene=p0.scene, normalizer=p0.dataset.normalizer, constraints=cset,
                    soft_paths=spc)
-    res = _plan_children(p0, gd, hard_c.values, paths_all.index_select(0, agents), noise_l,
-                         local)
+    res = _plan_children_on(mesh, p0, gd, hard_c.values, paths_all.index_select(0, agents),
+                            noise_l, local)
     scalars = [(res.free_mask[c].any(), *select_candidate_and_conflicts(
         res.trajs_final[c, ..., :2], res.free_mask[c], agent_idx, best_pos, margin))
         for c, agent_idx in enumerate(agent_ids)]
@@ -315,8 +339,8 @@ def _expand_nodes(team: PrioritizedTeam, nodes: Sequence[Carry],
                                if use_soft else None))
     seed_paths = torch.cat([node.paths.index_select(0, a)
                             for node, (a, _, _) in zip(nodes, specs)])
-    res = _plan_children(p0, gd, team.hard_team.values.index_select(0, agents), seed_paths,
-                         [z for noise2 in noise2_m for z in noise2], local)
+    res = _plan_children_on(team.mesh, p0, gd, team.hard_team.values.index_select(0, agents),
+                            seed_paths, [z for noise2 in noise2_m for z in noise2], local)
     out = []
     for m, (agents_m, _, _) in enumerate(specs):
         kids_m = []

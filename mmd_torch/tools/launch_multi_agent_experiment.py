@@ -33,7 +33,7 @@ from mmd_torch.experiments.experiments import (
     check_results_root,
     get_result_dir_from_trial_config,
 )
-from mmd_torch.experiments.trial import ModelRegistry, refuse_unported, run_multi_agent_trial
+from mmd_torch.experiments.trial import ModelRegistry, check_renders, run_multi_agent_trial
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -47,9 +47,9 @@ def run_multi_agent_experiment(cfg: MultiAgentPlanningExperimentConfig,
     results.pkl exists are skipped; a trial that raises is written to
     error_<time_str>.txt and the sweep goes on. `diffusion_cfg` (the
     sampler's schedule, the default's when None) is passed to every
-    trial. Unported knobs and a results root that `check_results_root`
-    refuses raise before any trial."""
-    refuse_unported(cfg)
+    trial. A render without matplotlib (`check_renders`) and a results
+    root that `check_results_root` refuses raise before any trial."""
+    check_renders(cfg)
     check_results_root(results_root, cfg.time_str)
     registry = registry or ModelRegistry()  # one for all trials: each model loads once
     cfg.save(results_root)

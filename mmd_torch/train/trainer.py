@@ -17,7 +17,9 @@ checkpoint step: the steps between two such points run as one chunk
 (`train_chunk`, JAX's scanned chunk), whose mean loss is what is logged,
 as JAX logs it. With bfloat16 compute (`TrainConfig.bf16`) the forward and
 backward run through `Bf16Forward` on the float32 master parameters;
-validation runs float32.
+validation runs float32. `train_step_dp` is the step data-parallel over
+a `parallel.sharding` mesh; `train` itself takes no mesh, as JAX's does
+not.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from mmd_torch.datasets.trajectories import TrajectoryDataset
 from mmd_torch.models.diffusion import HardConds, diffusion_loss, draw_loss_noise
 from mmd_torch.models.schedules import DiffusionSchedule, make_schedule
 from mmd_torch.models.temporal_unet import Bf16Forward, TemporalUnet, init_unet
+from mmd_torch.parallel.sharding import all_reduce_mean, shard_leading_axis
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
@@ -155,6 +158,26 @@ def train_step(state: TrainState, forward: Callable, schedule: DiffusionSchedule
     grads = torch.autograd.grad(loss, state.params)
     apply_gradients(state, grads, cfg)
     return loss.detach()
+
+
+def train_step_dp(state: TrainState, forward: Callable, schedule: DiffusionSchedule,
+                  cfg: TrainConfig, batch: torch.Tensor, hard: HardConds, t: torch.Tensor,
+                  noise: torch.Tensor, mesh) -> torch.Tensor:
+    """`train_step` data-parallel over the mesh's 'dp' axis (the JAX dry run's
+    step with the batch on 'dp' and the parameters replicated,
+    `__graft_entry__.py:98-113`): batch, hard values, t and noise are the
+    global step's, drawn whole on every rank; this rank takes its shard of
+    their rows, and the gradients and the loss are all-reduced to their
+    mean over the axis, which is the global batch's mean when the shards
+    are equal. Every rank then runs the same clip, Adam and EMA. Returns
+    the global loss, on the device."""
+    batch, values, t, noise = shard_leading_axis((batch, hard.values, t, noise), mesh, "dp")
+    loss = diffusion_loss(forward, schedule, batch, HardConds(mask=hard.mask, values=values),
+                          t, noise)
+    grads = torch.autograd.grad(loss, state.params)
+    *grads, loss = all_reduce_mean([*grads, loss.detach()], mesh, "dp")
+    apply_gradients(state, grads, cfg)
+    return loss
 
 
 class StepDrawer:

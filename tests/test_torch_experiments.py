@@ -22,7 +22,9 @@ What is held, and how closely:
   counted and written to error_<time_str>.txt while the sweep goes on;
   results go to build/results by default, and the committed results/
   tree and a sweep whose results.pkl JAX wrote are refused.
-- The refusal of what is not ported, a mesh, and `render_animation`'s
+- A mesh reaching a trial's CBS (JAX's ValueError for one with no
+  'agent' axis), `--mesh_agents 2` running the CLI's trial on 2 spawned
+  CPU ranks with rank 0's result saved, and `render_animation`'s
   ImportError without matplotlib; and
   `frontier_width`, `repair_period` and `greedy_iters`, which reach the
   CBS search of a trial and of a sweep, and not PP's.
@@ -41,6 +43,7 @@ import dataclasses
 import os
 import pickle
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -478,29 +481,37 @@ def test_pair_sweeps_puts_each_trial_beside_jaxs(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [{"frontier_width": 2}, {"repair_period": 1},
-                                  {"greedy_iters": 4}, {"mesh": object()},
+                                  {"greedy_iters": 4},
+                                  {"mesh": types.SimpleNamespace(axis_names=("dp",),
+                                                                 shape={"dp": 2})},
                                   {"render_animation": True}], ids=lambda k: next(iter(k)))
 def test_unported_knobs_are_refused(knob, tmp_path, cpu_registry, monkeypatch):
-    """A mesh is still refused (ValueError naming ROADMAP.md's sharding
-    item). render_animation, now ported, raises ImportError before anything
-    runs or is written on a machine without matplotlib (hidden here; the
-    GIF itself is tested in tests/test_torch_viz.py). The speculative
-    search's knobs, which the port once refused, now reach the CBS search
-    of a trial and of a sweep (JAX trial.py:201-209), and not PP's."""
+    """A mesh, now ported, reaches a trial's CBS constructor, which raises
+    JAX's ValueError for a mesh with no 'agent' axis (JAX cbs.py:214-216)
+    before anything is planned or written; a stand-in carrying
+    `axis_names` and `shape` serves, as in tests/test_mesh_planner.py (the
+    sharded search itself is tests/test_torch_mesh_planner.py's).
+    render_animation, now ported, raises ImportError before anything runs
+    or is written on a machine without matplotlib (hidden here; the GIF
+    itself is tested in tests/test_torch_viz.py). The speculative search's
+    knobs, which the port once refused, now reach the CBS search of a trial
+    and of a sweep (JAX trial.py:201-209), and not PP's."""
     kw = {k: v for k, v in knob.items() if k != "mesh"}
-    if "mesh" in knob or "render_animation" in knob:
+    if "mesh" in knob:
+        tc = _sweep_cfg(multi_agent_planner_class_l=["XECBS"], num_trials_per_combination=1
+                        ).get_single_trial_configs_from_experiment_config()[0]
+        with pytest.raises(ValueError, match="has no 'agent' axis"):
+            run_multi_agent_trial(tc, cpu_registry, str(tmp_path), diffusion_cfg=SHORT,
+                                  mesh=knob["mesh"])
+        assert not os.listdir(tmp_path)
+        return
+    if "render_animation" in knob:
         cfg = experiments.MultiAgentPlanningSingleTrialConfig(time_str="t", **kw)
-        if "mesh" in knob:
-            refusal = pytest.raises(ValueError, match="ROADMAP.md Queue 1, \"sharding\"")
-        else:
-            monkeypatch.setitem(sys.modules, "matplotlib", None)
-            refusal = pytest.raises(ImportError, match="matplotlib")
-        with refusal:
-            run_multi_agent_trial(cfg, registry=object(), results_root=str(tmp_path),
-                                  mesh=knob.get("mesh"))
-        if "mesh" not in knob:
-            with pytest.raises(ImportError, match="matplotlib"):
-                run_multi_agent_experiment(_sweep_cfg(**kw), str(tmp_path))
+        monkeypatch.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            run_multi_agent_trial(cfg, registry=object(), results_root=str(tmp_path))
+        with pytest.raises(ImportError, match="matplotlib"):
+            run_multi_agent_experiment(_sweep_cfg(**kw), str(tmp_path))
         assert not os.listdir(tmp_path)
         return
     from mmd_torch.experiments import trial as trial_module
@@ -527,17 +538,23 @@ def test_unported_knobs_are_refused(knob, tmp_path, cpu_registry, monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--mesh_agents", "2"], ["--render_animation"]])
 def test_inference_cli_refuses_what_is_not_ported(argv, tmp_path, monkeypatch):
-    """--mesh_agents raises ValueError naming ROADMAP.md's sharding item;
-    --render_animation, now ported, raises ImportError before planning
-    where matplotlib is missing (hidden here)."""
+    """--mesh_agents, now ported, runs the trial on 2 spawned ranks with
+    gloo on the CPU: rank 0 alone saves one result, a SUCCESS of the
+    2-robot XECBS. --render_animation, now ported, raises ImportError
+    before planning where matplotlib is missing (hidden here)."""
+    args = argv + ["--results_root", str(tmp_path), "--device", "cpu", "--num_agents", "2"]
     if argv[0] == "--mesh_agents":
-        refusal = pytest.raises(ValueError, match="ROADMAP.md Queue 1, \"sharding\"")
-    else:
-        monkeypatch.setitem(sys.modules, "matplotlib", None)
-        refusal = pytest.raises(ImportError, match="matplotlib")
-    with refusal:
-        inference_multi_agent.main(argv + ["--results_root", str(tmp_path), "--device", "cpu",
-                                           "--num_agents", "2"])
+        assert inference_multi_agent.main(args) == 0
+        (saved,) = [os.path.join(d, f) for d, _, files in os.walk(tmp_path)
+                    for f in files if f == "results.pkl"]
+        with open(saved, "rb") as f:
+            result = pickle.load(f)
+        assert result.success_status == TrialSuccessStatus.SUCCESS
+        assert len(result.agent_path_l) == 2 and result.num_collisions_in_solution == 0
+        return
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        inference_multi_agent.main(args)
     assert not os.listdir(tmp_path)
 
 

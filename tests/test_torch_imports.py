@@ -22,7 +22,8 @@ field of viz, GP-prior draws, the timer, the compile monitor and one
 forward's FLOPs. The JAX package's scripts are blocked
 too, by package and by module name. chip_smoke.py itself must exit
 non-zero and print no result without a CUDA card, and when it stands
-alone in a directory.
+alone in a directory. The modules that sharding's spawned ranks import
+load neither jax nor mmd_tpu where both are installed.
 """
 import os
 import shutil
@@ -218,6 +219,20 @@ def test_port_imports_and_runs_without_jax_flax_yaml_msgpack():
     assert sum("summary_trajectory_generation: figure skipped" in e for e in err) == 2, err
     assert sum("mmd_single_trial.png skipped" in e and "matplotlib" in e for e in err) == 1, err
     assert "the successful trial saved its result without a frame" in err
+
+
+def test_sharding_modules_import_neither_jax_nor_the_jax_package():
+    """The modules a spawned rank imports (the mesh helpers, the dry run and
+    the ranks' cases) pull in neither jax nor mmd_tpu, even where both are
+    installed, as here."""
+    code = ("import sys; before = set(sys.modules); sys.path.insert(0, sys.argv[1]); "
+            "import mmd_torch.parallel.sharding, mmd_torch.parallel.dryrun, "
+            "mmd_torch.tools.shard_cases; "
+            "print(sorted({n.split('.')[0] for n in set(sys.modules) - before} "
+            "& {'jax', 'jaxlib', 'flax', 'mmd_tpu'}))")
+    proc = _run(["-c", code, ROOT], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
