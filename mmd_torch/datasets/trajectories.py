@@ -25,6 +25,7 @@ from mmd_torch.io.flat_yaml import load_flat_yaml, save_flat_yaml
 from mmd_torch.models.diffusion import HardConds
 from mmd_torch.robots.disk import DiskRobot
 from mmd_torch.tasks.task import PlanningTask
+from mmd_torch.utils.profiling import span
 from mmd_torch.utils.transfer import to_device
 
 
@@ -90,11 +91,12 @@ class TrajectoryDataset:
     def load(root: str, mid: str, normalizer: LimitsNormalizer,
              device="cuda") -> "TrajectoryDataset":
         """A planner's dataset: the checkpoint's normalizer, no trajectories."""
-        d = os.path.join(root, mid)
-        meta = load_flat_yaml(os.path.join(d, "metadata.yaml"))
-        _, H, D = npz_array_shape(os.path.join(d, "trajs-free.npz"))
-        return TrajectoryDataset(meta["env_id"], H, D, normalizer,
-                                 duration=meta.get("duration", 5.0), device=device)
+        with span("dataset.load"):
+            d = os.path.join(root, mid)
+            meta = load_flat_yaml(os.path.join(d, "metadata.yaml"))
+            _, H, D = npz_array_shape(os.path.join(d, "trajs-free.npz"))
+            return TrajectoryDataset(meta["env_id"], H, D, normalizer,
+                                     duration=meta.get("duration", 5.0), device=device)
 
     @staticmethod
     def from_trajs(trajs: np.ndarray, env_name: str, robot: Optional[DiskRobot] = None,

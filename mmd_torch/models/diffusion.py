@@ -50,6 +50,7 @@ from torch import nn
 from mmd_torch.config import DiffusionConfig
 from mmd_torch.costs.guide import GuideConfig, GuideData, guide_loop
 from mmd_torch.models.schedules import DiffusionSchedule
+from mmd_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +151,9 @@ def _denoised_mean(model: nn.Module, schedule: DiffusionSchedule, x: torch.Tenso
     problems' x (N, B, H, D) runs as one (N * B, H, D) batch."""
     xf = x.reshape(-1, *x.shape[-2:])
     tb = torch.full((xf.shape[0],), max(i, 0), dtype=torch.int64, device=x.device)
-    x0 = torch.clamp(predict_start_from_noise(schedule, xf, tb, model(xf, tb)), -1.0, 1.0)
+    with span("unet"):
+        eps = model(xf, tb)
+    x0 = torch.clamp(predict_start_from_noise(schedule, xf, tb, eps), -1.0, 1.0)
     return q_posterior_mean(schedule, x0, xf, tb).reshape(x.shape)
 
 
@@ -242,7 +245,8 @@ def ddim_step(model: nn.Module, schedule: DiffusionSchedule, x: torch.Tensor, t:
               guide_cfg: Optional[GuideConfig]) -> torch.Tensor:
     """One DDIM substep from t to t_next (diffusion.py:259-277)."""
     tb = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-    eps = model(x, tb)
+    with span("unet"):
+        eps = model(x, tb)
     x0 = predict_start_from_noise(schedule, x, tb, eps)
     if t_next < 0:
         return hard.apply(x0)

@@ -5,7 +5,8 @@
 source, the headers of `csrc/` it may include, the flags and the compiler
 path, so an edited source or header never loads a stale library. The library is loaded with `ctypes` by the op that owns it.
 Each call that runs nvcc hands its seconds to every function in
-`COMPILE_LISTENERS` (`utils.profiling.compile_time_monitor`).
+`COMPILE_LISTENERS` (`utils.profiling.compile_time_monitor`) and adds the
+libraries it built to an open recording's counter `kernels.built`.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, List, Sequence
+
+from mmd_torch.utils.profiling import count, span
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build"
@@ -78,6 +81,7 @@ def build_shared_libraries(sources: Sequence[Path],
                 proc.kill()
                 proc.wait()
         if jobs:
+            count("kernels.built", sum(proc.returncode == 0 for *_, proc in jobs))
             for listener in list(COMPILE_LISTENERS):
                 listener(time.perf_counter() - t0)
     if errors:
@@ -90,7 +94,8 @@ def load_kernels() -> None:
     together) and load them, so that no later call builds one."""
     from mmd_torch.ops import collision_guide, guide_loop, sdf_kernel
 
-    build_shared_libraries([sdf_kernel.SOURCE, collision_guide.SOURCE, guide_loop.SOURCE])
-    sdf_kernel.load_library()
-    collision_guide.load_library()
-    guide_loop.load_library()
+    with span("kernels.load"):
+        build_shared_libraries([sdf_kernel.SOURCE, collision_guide.SOURCE, guide_loop.SOURCE])
+        sdf_kernel.load_library()
+        collision_guide.load_library()
+        guide_loop.load_library()

@@ -17,6 +17,10 @@ call, as JAX vmaps `_plan_fresh` and `_plan_local`: the finalize then
 classifies all N * B trajectories in one lookup launch and every
 `PlanResult` field leads with N. A single plan is the same code without
 the leading axis.
+
+In an open recording (`utils.profiling.recording`) a sampler call, from
+its entry to its finalize, is one `sampler.call` span, and the
+constructor is a `planner.init` span.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from mmd_torch.utils.metrics import (
     compute_smoothness,
     compute_variance_waypoints,
 )
+from mmd_torch.utils.profiling import SAMPLER_CALL, span
 
 @dataclasses.dataclass(frozen=True)
 class PlanResult:
@@ -108,40 +113,41 @@ class MPD:
                  guide_cfg: Optional[GuideConfig] = None,
                  seed: int = default_params.seed, bf16: bool = False,
                  sampler: str = "ddpm", ddim_substeps: int = 0):
-        # bf16: the UNet's bfloat16 twin, shared by every planner of the
-        # model (mpd.py:71, 170).
-        self.model = bf16_model(model) if bf16 else model
-        self.schedule = schedule
-        self.dataset = dataset
-        self.device = dataset.device
-        self.robot = dataset.robot
-        self.task = PlanningTask(dataset.env, dataset.robot)
-        self.scene = dataset.env.scene
-        H = dataset.n_support_points
-        self.cfg = cfg or DiffusionConfig(
-            horizon=H,
-            state_dim=dataset.state_dim,
-            n_diffusion_steps=schedule.n_steps,
-            t_start_guide=int(np.ceil(default_params.start_guide_steps_fraction
-                                      * schedule.n_steps)),
-            n_guide_steps=default_params.n_guide_steps,
-        )
-        if sampler != self.cfg.sampler or ddim_substeps:
-            # DDIM runs fresh full loops only (mpd.py:185-190); the config
-            # checks ddim_substeps.
-            self.cfg = dataclasses.replace(self.cfg, sampler=sampler,
-                                           ddim_substeps=int(ddim_substeps))
-        self.guide_cfg = guide_cfg or GuideConfig(dt=dataset.duration / H,
-                                                  robot_radius=self.robot.radius)
-        kw = dict(dtype=torch.float32, device=self.device)
-        self.start_state_pos = torch.as_tensor(np.asarray(start_state_pos), **kw)
-        self.goal_state_pos = torch.as_tensor(np.asarray(goal_state_pos), **kw)
-        self.hard_conds = dataset.get_hard_conditions(self.start_state_pos,
-                                                      self.goal_state_pos)
-        self._savgol = torch.as_tensor(np.array(savgol_matrix(H)), **kw)
-        self._generator = torch.Generator(device=self.device)
-        self._generator.manual_seed(seed)
-        self.n_support_points = H
+        with span("planner.init"):
+            # bf16: the UNet's bfloat16 twin, shared by every planner of the
+            # model (mpd.py:71, 170).
+            self.model = bf16_model(model) if bf16 else model
+            self.schedule = schedule
+            self.dataset = dataset
+            self.device = dataset.device
+            self.robot = dataset.robot
+            self.task = PlanningTask(dataset.env, dataset.robot)
+            self.scene = dataset.env.scene
+            H = dataset.n_support_points
+            self.cfg = cfg or DiffusionConfig(
+                horizon=H,
+                state_dim=dataset.state_dim,
+                n_diffusion_steps=schedule.n_steps,
+                t_start_guide=int(np.ceil(default_params.start_guide_steps_fraction
+                                          * schedule.n_steps)),
+                n_guide_steps=default_params.n_guide_steps,
+            )
+            if sampler != self.cfg.sampler or ddim_substeps:
+                # DDIM runs fresh full loops only (mpd.py:185-190); the config
+                # checks ddim_substeps.
+                self.cfg = dataclasses.replace(self.cfg, sampler=sampler,
+                                               ddim_substeps=int(ddim_substeps))
+            self.guide_cfg = guide_cfg or GuideConfig(dt=dataset.duration / H,
+                                                      robot_radius=self.robot.radius)
+            kw = dict(dtype=torch.float32, device=self.device)
+            self.start_state_pos = torch.as_tensor(np.asarray(start_state_pos), **kw)
+            self.goal_state_pos = torch.as_tensor(np.asarray(goal_state_pos), **kw)
+            self.hard_conds = dataset.get_hard_conditions(self.start_state_pos,
+                                                          self.goal_state_pos)
+            self._savgol = torch.as_tensor(np.array(savgol_matrix(H)), **kw)
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(seed)
+            self.n_support_points = H
 
     def _pack(self, constraints_l: Optional[List]
               ) -> Tuple[ConstraintSet, Optional[SoftPathConstraints]]:
@@ -180,23 +186,25 @@ class MPD:
                     hard: HardConds) -> PlanResult:
         """The planner's program (model, configs, scene, finalize) under the
         hard conditions `hard`: its own, or a team member's."""
-        _, chain = guided_p_sample_loop(self.model, self.schedule, hard,
-                                        self.cfg, noise, gd=gd,
-                                        guide_cfg=self.guide_cfg)
-        return _finalize_plan(chain, gd.normalizer, self.scene, self.robot.radius,
-                              self.robot.q_min, self.robot.q_max, self._savgol)
+        with span(SAMPLER_CALL):
+            _, chain = guided_p_sample_loop(self.model, self.schedule, hard,
+                                            self.cfg, noise, gd=gd,
+                                            guide_cfg=self.guide_cfg)
+            return _finalize_plan(chain, gd.normalizer, self.scene, self.robot.radius,
+                                  self.robot.q_min, self.robot.q_max, self._savgol)
 
     def _plan_local(self, gd: GuideData, seed_norm: torch.Tensor, noise: SamplerNoise,
                     hard: HardConds) -> PlanResult:
         """The local replan (mpd.py:134-149): the normalized seed batch
         q-sampled at n_local_inference_noising_steps, then that many steps
         and the noise-free ones denoised under `gd`."""
-        chain = run_local_inference(
-            self.model, self.schedule, hard, gd, seed_norm, noise, self.cfg, self.guide_cfg,
-            n_noising_steps=default_params.n_local_inference_noising_steps,
-            n_denoising_steps=default_params.n_local_inference_denoising_steps)
-        return _finalize_plan(chain, gd.normalizer, self.scene, self.robot.radius,
-                              self.robot.q_min, self.robot.q_max, self._savgol)
+        with span(SAMPLER_CALL):
+            chain = run_local_inference(
+                self.model, self.schedule, hard, gd, seed_norm, noise, self.cfg, self.guide_cfg,
+                n_noising_steps=default_params.n_local_inference_noising_steps,
+                n_denoising_steps=default_params.n_local_inference_denoising_steps)
+            return _finalize_plan(chain, gd.normalizer, self.scene, self.robot.radius,
+                                  self.robot.q_min, self.robot.q_max, self._savgol)
 
     def plan_fresh_batch(self, gd: GuideData, noise_l: Sequence[SamplerNoise],
                          hard_values: torch.Tensor) -> PlanResult:
@@ -204,7 +212,9 @@ class MPD:
         problem n under the hard-condition values hard_values[n] (H, D), the
         draws noise_l[n] and `gd`'s n-th constraints (`gd` leads with N, or
         holds none). Every field of the result leads with N."""
-        return self._plan_fresh(gd, SamplerNoise.stack(noise_l), self._hard_batch(hard_values))
+        with span(SAMPLER_CALL):
+            return self._plan_fresh(gd, SamplerNoise.stack(noise_l),
+                                    self._hard_batch(hard_values))
 
     def plan_local_batch(self, gd: GuideData, seeds_norm: torch.Tensor,
                          noise_l: Sequence[SamplerNoise],
@@ -212,8 +222,9 @@ class MPD:
         """N local replans as one sampler call (JAX's vmap of `_plan_local`),
         problem n warm-started from the normalized batch seeds_norm[n]
         (N, B, H, D); otherwise as `plan_fresh_batch`."""
-        return self._plan_local(gd, seeds_norm, SamplerNoise.stack(noise_l),
-                                self._hard_batch(hard_values))
+        with span(SAMPLER_CALL):
+            return self._plan_local(gd, seeds_norm, SamplerNoise.stack(noise_l),
+                                    self._hard_batch(hard_values))
 
     def _hard_batch(self, hard_values: torch.Tensor) -> HardConds:
         """(N, H, D) start/goal values as N problems' conditions under the

@@ -28,6 +28,7 @@ from mmd_torch.io.msgpack import load_msgpack, save_msgpack
 from mmd_torch.models.ensemble import StackedUnet, stack_params
 from mmd_torch.models.schedules import DiffusionSchedule, make_schedule
 from mmd_torch.models.temporal_unet import TemporalUnet, convert_flax_params, to_flax_params
+from mmd_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from mmd_torch.datasets.trajectories import TrajectoryDataset
@@ -38,16 +39,17 @@ def load_checkpoint(model_dir: str, device="cuda", use_ema: bool = True
                     ) -> Tuple[TemporalUnet, DiffusionSchedule, Dict]:
     """Returns (model in eval mode on `device`, schedule, info from
     args.yaml); the EMA weights unless use_ema is False."""
-    info = load_flat_yaml(os.path.join(model_dir, "args.yaml"))
-    model = TemporalUnet(state_dim=info["state_dim"],
-                         unet_input_dim=info["unet_input_dim"],
-                         dim_mults=tuple(info["dim_mults"]))
-    name = "ema_model.msgpack" if use_ema else "model.msgpack"
-    tree = load_msgpack(os.path.join(model_dir, name))
-    model.load_state_dict(convert_flax_params(tree, n_levels=len(info["dim_mults"])))
-    model = model.to(device).eval().requires_grad_(False)
-    schedule = make_schedule(info["variance_schedule"], info["n_diffusion_steps"],
-                             device=device)
+    with span("checkpoint.load"):
+        info = load_flat_yaml(os.path.join(model_dir, "args.yaml"))
+        model = TemporalUnet(state_dim=info["state_dim"],
+                             unet_input_dim=info["unet_input_dim"],
+                             dim_mults=tuple(info["dim_mults"]))
+        name = "ema_model.msgpack" if use_ema else "model.msgpack"
+        tree = load_msgpack(os.path.join(model_dir, name))
+        model.load_state_dict(convert_flax_params(tree, n_levels=len(info["dim_mults"])))
+        model = model.to(device).eval().requires_grad_(False)
+        schedule = make_schedule(info["variance_schedule"], info["n_diffusion_steps"],
+                                 device=device)
     return model, schedule, info
 
 

@@ -92,11 +92,13 @@ def test_bench_needs_a_card(capsys):
 def test_profiler_trace_writes_a_chrome_trace(tmp_path):
     x = torch.randn(64, 64)
     with profiling.profiler_trace(str(tmp_path / "trace")) as prof:
-        (x @ x).sum()
+        with profiling.span("unet"):
+            (x @ x).sum()
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
     assert os.path.dirname(prof.trace_path) == str(tmp_path / "trace")
     assert any("mm" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "unet" for e in events)  # the program's span
 
 
 def _stub_nvcc(path, seconds):
